@@ -1,0 +1,340 @@
+#!/usr/bin/env python3
+"""Smoke run of lighthouse2_tpu_torch, the PyTorch + CUDA port, on one GPU.
+
+Run from the repository root on a machine with one CUDA card and the CUDA
+toolkit (nvcc on PATH or under /usr/local/cuda):
+
+    python3 chip_smoke.py
+
+Phases; any failure exits non-zero before the result line is printed:
+  1. the card, torch / CUDA / nvcc versions; build csrc/trace.cu with nvcc
+     for sm_90a and print its -Xptxas -v report;
+  2. both trace kernels against their plain PyTorch versions on the full
+     bathroom scene (129,252 triangles) for the 512x512 primary rays, the
+     bounce-1 rays of one shade_bounce and that bounce's NEE shadow batch:
+     prim, t and occlusion agreement (>= 99.99% of lanes), and CUDA-event
+     times of kernel and plain version;
+  3. the main path: bathroom 512x512, path 16, path regeneration, through
+     render_pass — 1 warm-up and 3 timed passes; Mrays/s (extension +
+     shadow rays), per-bounce ray counts, peak memory, the image; each
+     kernel must launch exactly 16 times a pass; then one profiled pass;
+  4. a 64x64 Cornell box rendered on the card and on the CPU (plain
+     versions), compared per pixel.
+It then prints one JSON line of per-kernel numbers, the card's name and
+power limit, and last the result line {"ok": true, "device": {...}}.
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+KERNEL_ITERS = 20          # timed launches per kernel and batch
+AGREE_MIN = 0.9999         # fraction of lanes that must agree
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, FP32 outside tensor cores
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+# floating-point operations of one interior step (two child slab tests) and
+# of one Moller-Trumbore test, counted from csrc/trace.cu
+SLAB_PAIR_OPS = 50
+MT_OPS = 54
+
+
+def _sh(cmd):
+    return subprocess.run(cmd, capture_output=True, text=True, check=True,
+                          timeout=120).stdout.strip()
+
+
+def _time_ms(fn, iters, dev):
+    """Mean milliseconds per call over `iters` calls after one warm-up call;
+    CUDA events on the card, the host clock on the CPU."""
+    import torch
+    fn()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / iters
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def _bound(n_bytes, n_ops):
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_kernels(scene, view, cfg, dev, iters):
+    """Phase 2. Returns {kernel name: {batch: numbers}}."""
+    import torch
+    from lighthouse2_tpu_torch.bvh.traverse import bvh_intersect, bvh_occluded
+    from lighthouse2_tpu_torch.core.geometry import BIG_T
+    from lighthouse2_tpu_torch.core.rng import CAM_RNG_SEED
+    from lighthouse2_tpu_torch.render import wavefront as wf
+    from lighthouse2_tpu_torch.render.kernels.trace import (
+        trace_closest, trace_occluded)
+
+    bvh = scene.bvh
+    paths, depth, _ = wf.make_regen_pool(view, cfg)
+    n = depth.shape[0]
+    t, prim, u, v = wf._intersect(scene, paths["origin"], paths["dir"],
+                                  paths["alive"])
+    acc = torch.zeros((n, 4), dtype=torch.float32, device=dev)
+    paths1, _, _, shadow = wf.shade_bounce(scene, view, cfg, paths, acc,
+                                           CAM_RNG_SEED, depth, t, prim, u, v)
+    batches = dict(
+        primary=(paths["origin"], paths["dir"],
+                 torch.full((n,), BIG_T, device=dev)),
+        bounce1=(paths1["origin"], paths1["dir"],
+                 torch.where(paths1["alive"], BIG_T, 0.0)),
+        shadow=(shadow["o"], shadow["d"], shadow["tmax"]))
+    scene_bytes = sum(x.numel() * x.element_size() for x in (
+        bvh.nbox, bvh.left, bvh.right, bvh.count, bvh.prim, bvh.tri9))
+    out = {"trace_closest": {}, "trace_occluded": {}}
+    for name, (o, d, tmax) in batches.items():
+        o, d, tmax = o.contiguous(), d.contiguous(), tmax.contiguous()
+        kt, kp, ku, kv, kst = trace_closest(o, d, tmax, bvh, stats=True)
+        pt, pp, pu, pv, pst = bvh_intersect(o, d, bvh, t_max=tmax, stats=True)
+        ko, kost = trace_occluded(o, d, tmax, bvh, stats=True)
+        po = bvh_occluded(o, d, tmax, bvh)
+        match = kp == pp
+        hits = match & (pp >= 0)
+        dt = (kt - pt).abs()[hits]
+        rel = (dt / pt.abs()[hits].clamp(min=1e-30))
+        prim_frac = match.float().mean().item()
+        occ_frac = (ko == po).float().mean().item()
+        c = dict(
+            rays=n, live=int((tmax > 0).sum()), hits=int((pp >= 0).sum()),
+            prim_match=prim_frac, occ_match=occ_frac,
+            t_mean_rel_err=rel.mean().item() if hits.any() else 0.0,
+            t_max_abs_err=dt.max().item() if hits.any() else 0.0,
+            uv_max_abs_err=max((ku - pu).abs()[hits].max().item(),
+                               (kv - pv).abs()[hits].max().item())
+            if hits.any() else 0.0,
+            counts_match=(kst == pst).all(0).float().mean().item(),
+            occluded=int(ko.sum()),
+            mean_steps=kst[0].float().mean().item(),
+            mean_tri_tests=kst[2].float().mean().item())
+        print(f"[kernels] {name}: " + json.dumps(c), flush=True)
+        if prim_frac < AGREE_MIN or occ_frac < AGREE_MIN:
+            raise AssertionError(f"kernel/plain agreement below {AGREE_MIN} "
+                                 f"on {name}: prim {prim_frac}, occ {occ_frac}")
+        ck = _time_ms(lambda: trace_closest(o, d, tmax, bvh), iters, dev)
+        cp = _time_ms(lambda: bvh_intersect(o, d, bvh, t_max=tmax), iters, dev)
+        ok_ = _time_ms(lambda: trace_occluded(o, d, tmax, bvh), iters, dev)
+        op = _time_ms(lambda: bvh_occluded(o, d, tmax, bvh), iters, dev)
+        ray_bytes = n * (12 + 12 + 4)
+        c_ops = int(kst[1].sum()) * SLAB_PAIR_OPS + int(kst[2].sum()) * MT_OPS
+        o_ops = int(kost[1].sum()) * SLAB_PAIR_OPS + int(kost[2].sum()) * MT_OPS
+        cb, cbb = _bound(ray_bytes + n * 16 + scene_bytes, c_ops)
+        ob, obb = _bound(ray_bytes + n + scene_bytes, o_ops)
+        out["trace_closest"][name] = dict(
+            ms=ck, plain_ms=cp, bound_ms=cb, bound_by=cbb,
+            max_abs_err=c["t_max_abs_err"], ops=c_ops)
+        out["trace_occluded"][name] = dict(
+            ms=ok_, plain_ms=op, bound_ms=ob, bound_by=obb,
+            max_abs_err=float((ko != po).any()), ops=o_ops)
+        print(f"[kernels] {name}: closest {ck:.4f} ms (plain {cp:.2f} ms, "
+              f"bound {cb:.4f} ms by {cbb}); occluded {ok_:.4f} ms "
+              f"(plain {op:.2f} ms, bound {ob:.4f} ms by {obb})", flush=True)
+    return out
+
+
+def main_path(scene, view, cfg, dev, passes):
+    """Phase 3. Returns the numbers of the timed passes."""
+    import torch
+    from lighthouse2_tpu_torch.render.kernels.trace import (
+        trace_closest, trace_occluded)
+    from lighthouse2_tpu_torch.render.wavefront import (
+        AccumState, finalize, render_pass)
+
+    state = AccumState.make(cfg, dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    trace_closest.launches = 0
+    trace_occluded.launches = 0
+    counts = [(0, 0)]
+    t0 = time.perf_counter()
+    state, stats = render_pass(scene, view, state, cfg)      # warm-up
+    counts.append((trace_closest.launches, trace_occluded.launches))
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    warm_s = time.perf_counter() - t0
+    all_stats = []
+    t0 = time.perf_counter()
+    for _ in range(passes):
+        state, stats = render_pass(scene, view, state, cfg)
+        all_stats.append(stats)
+        counts.append((trace_closest.launches, trace_occluded.launches))
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    dt = time.perf_counter() - t0
+    launches = dict(trace_closest=trace_closest.launches,
+                    trace_occluded=trace_occluded.launches)
+    per_pass = [(b[0] - a[0], b[1] - a[1]) for a, b in zip(counts, counts[1:])]
+    rays = sum(int(s["total_extension"]) + int(s["total_shadow"])
+               for s in all_stats)
+    img = finalize(state)
+    res = dict(
+        passes=passes, seconds=dt, warmup_seconds=warm_s,
+        mrays_per_s=rays / dt / 1e6, rays=rays,
+        ms_per_pass=dt * 1e3 / passes,
+        extension_rays=all_stats[-1]["extension_rays"].tolist(),
+        shadow_rays=all_stats[-1]["shadow_rays"].tolist(),
+        samples_completed=int(all_stats[-1]["samples_completed"]),
+        launches=launches, launches_per_pass=per_pass,
+        image_mean=img.mean().item(),
+        image_finite=bool(torch.isfinite(img).all()),
+        max_memory_allocated=(torch.cuda.max_memory_allocated(dev)
+                              if dev.type == "cuda" else None))
+    print("[main] " + json.dumps(res), flush=True)
+    want = cfg.max_path_length
+    if any(p != (want, want) for p in per_pass):
+        raise AssertionError(f"each kernel must launch {want} times a pass, "
+                             f"got {per_pass}")
+    if not (res["image_finite"] and res["image_mean"] > 0):
+        raise AssertionError("the rendered image is not finite and positive")
+    return res, state
+
+
+def profile_pass(scene, view, cfg, state, dev):
+    """One more pass under torch.profiler: device time by kernel name."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from lighthouse2_tpu_torch.render.wavefront import render_pass
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        render_pass(scene, view, state, cfg)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+    rows = []      # device-side events only (kernels, copies, memsets)
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        if e.device_type == DeviceType.CUDA and us > 0:
+            rows.append((us, e.key, e.count))
+    rows.sort(reverse=True)
+    total = sum(r[0] for r in rows)
+    share = {k: sum(r[0] for r in rows if k in r[1]) / max(total, 1e-9)
+             for k in ("closest_kernel", "occluded_kernel")}
+    res = dict(wall_ms=wall * 1e3, device_ms=total / 1e3,
+               device_busy_share=total / 1e3 / (wall * 1e3),
+               kernel_share_of_device=share,
+               top=[dict(name=k[:60], ms=us / 1e3, calls=c)
+                    for us, k, c in rows[:12]])
+    print("[profile] " + json.dumps(res), flush=True)
+    return res
+
+
+def reference_check(dev):
+    """Phase 4: a small render on the card against the same render through
+    the plain versions on the CPU."""
+    import torch
+    from lighthouse2_tpu_torch.core.types import RenderConfig
+    from lighthouse2_tpu_torch.render.wavefront import (
+        AccumState, finalize, render_pass)
+    from lighthouse2_tpu_torch.scene.presets import cornell_box
+
+    cfg = RenderConfig(width=64, height=64, spp_per_pass=1, max_path_length=4,
+                       path_regen=True)
+    scene, cam = cornell_box(64, 64)
+    out = {}
+    for where in (dev, torch.device("cpu")):
+        ds, view = scene.sync(where), cam.get_view(where)
+        st = AccumState.make(cfg, where)
+        for _ in range(2):
+            st, _ = render_pass(ds, view, st, cfg)
+        out[where.type] = (st.accumulator.cpu(), finalize(st).cpu())
+    (ga, gi), (ca, ci) = out[dev.type], out["cpu"]
+    close = torch.isclose(ga, ca, rtol=1e-3, atol=1e-4).all(-1)
+    res = dict(pixels_close=close.float().mean().item(),
+               mean_card=gi.mean().item(), mean_cpu=ci.mean().item(),
+               mean_rel_diff=abs(gi.mean().item() - ci.mean().item())
+               / max(abs(ci.mean().item()), 1e-30))
+    print("[reference] " + json.dumps(res), flush=True)
+    if res["pixels_close"] < 0.99 or res["mean_rel_diff"] > 1e-3:
+        raise AssertionError("card and CPU renders disagree")
+    return res
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+    try:
+        from lighthouse2_tpu_torch.core.types import RenderConfig
+        from lighthouse2_tpu_torch.render.kernels.trace import build_library
+        from lighthouse2_tpu_torch.scene.bench_scene import bathroom
+    except ImportError as e:
+        print(f"chip_smoke: run from the repository root ({e})",
+              file=sys.stderr)
+        return 1
+    dev = torch.device("cuda", 0)
+    card = _sh(["nvidia-smi", "--query-gpu=name,power.limit",
+                "--format=csv,noheader"]).splitlines()[0]
+    print(f"[env] card: {card}; torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda}, python {sys.version.split()[0]}", flush=True)
+    nvcc = os.environ.get("NVCC", "nvcc")
+    try:
+        print("[env] " + _sh([nvcc, "--version"]).splitlines()[-1], flush=True)
+    except FileNotFoundError:
+        print("[env] " + _sh(["/usr/local/cuda/bin/nvcc", "--version"])
+              .splitlines()[-1], flush=True)
+
+    t0 = time.perf_counter()
+    so, log = build_library()
+    print(f"[build] {so} in {time.perf_counter() - t0:.1f} s\n{log.strip()}",
+          flush=True)
+
+    size, path_len = 512, 16
+    cfg = RenderConfig(width=size, height=size, spp_per_pass=1,
+                       max_path_length=path_len, use_bvh=True, path_regen=True)
+    t0 = time.perf_counter()
+    host, cam = bathroom(size, size)
+    scene = host.sync(dev)
+    view = cam.get_view(dev)
+    print(f"[scene] bathroom: {scene.tris.count} triangles, "
+          f"{scene.bvh.nbox.shape[1]} BVH nodes, depth {scene.bvh.depth}, "
+          f"{scene.materials.count} materials; built and uploaded in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    kern = check_kernels(scene, view, cfg, dev, KERNEL_ITERS)
+    main_res, state = main_path(scene, view, cfg, dev, passes=3)
+    print(f"[main] {main_res['mrays_per_s']:.3f} Mrays/s on {card} "
+          f"(bathroom {size}x{size}, path {path_len}, regen)", flush=True)
+    profile_pass(scene, view, cfg, state, dev)
+    reference_check(dev)
+
+    rows = []
+    for name, batch, line in (("trace_closest", "bounce1", 229),
+                              ("trace_occluded", "shadow", 414)):
+        k = kern[name][batch]
+        rows.append(dict(
+            name=name, route="cuda", source="lighthouse2_tpu_torch/csrc/trace.cu",
+            replaces=f"lighthouse2_tpu/render/kernels/trace.py:{line}",
+            launches=main_res["launches"][name], max_abs_err=k["max_abs_err"],
+            ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
+            bound_by=k["bound_by"], library_ms=None))
+    print(json.dumps({"kernels": rows}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

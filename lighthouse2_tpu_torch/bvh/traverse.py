@@ -1,0 +1,246 @@
+"""BVH2 traversal in plain PyTorch — the plain version of both trace kernels.
+
+Counterpart of lighthouse2_tpu/bvh/traverse.py (DeviceBVH,
+device_bvh_from_flat, _traverse_chunk, bvh_intersect, bvh_occluded, and
+refine_hit forward only). All rays advance in lockstep: each step every live
+ray either tests the triangles of its leaf, descends into the nearer hit
+child (pushing the farther one), or pops its explicit stack. The CUDA kernels
+in csrc/trace.cu walk each ray through the same node sequence with the same
+arithmetic, so this is what they are held against.
+
+Deliberate differences from the JAX version:
+  - the stack holds STACK_CAP = 64 entries and a BVH deeper than
+    STACK_CAP - 2 raises ValueError (the JAX lockstep clips at 48);
+  - lanes that finish are compacted out of the working set between
+    convergence checks, so long-tailed batches cost what their live rays
+    need (results are per lane and do not change);
+  - optional per-ray int32 [3, N] counts: steps (node visits), interior
+    nodes whose child boxes were tested, and triangle tests.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from lighthouse2_tpu_torch.bvh.builder import bvh_depth
+from lighthouse2_tpu_torch.core.geometry import BIG_T, mt_comp
+
+STACK_CAP = 64            # per-ray stack entries (csrc/trace.cu STACK_CAP)
+STEPS_PER_CHECK = 4       # traversal steps between convergence checks
+
+
+@dataclasses.dataclass
+class DeviceBVH:
+    nbox: torch.Tensor    # [6,M] f32 component-major: min.xyz, max.xyz
+    left: torch.Tensor    # [M] int32: interior -> left child; leaf -> first prim slot
+    right: torch.Tensor   # [M] int32: interior -> right child; leaf -> -1
+    count: torch.Tensor   # [M] int32: 0 interior, >0 leaf prim count
+    prim: torch.Tensor    # [T] int32 triangle ids, contiguous per leaf
+    tri9: torch.Tensor    # [9,T] f32: v0.xyz, e1.xyz, e2.xyz
+    max_leaf: int = 4
+    depth: int = 0        # root-to-leaf edges, measured on the host at upload
+
+
+def device_bvh_from_flat(flat: dict, v0, v1, v2, device,
+                         max_leaf: int = 4) -> DeviceBVH:
+    """Upload a builder.py flat dict in the traversal layout."""
+    nbox = np.concatenate([flat["nmin"].T, flat["nmax"].T], 0).astype(np.float32)
+    v0 = np.asarray(v0, np.float32)
+    e1 = np.asarray(v1, np.float32) - v0
+    e2 = np.asarray(v2, np.float32) - v0
+    tri9 = np.concatenate([v0.T, e1.T, e2.T], 0).astype(np.float32)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return DeviceBVH(nbox=t(nbox), left=t(flat["left"]), right=t(flat["right"]),
+                     count=t(flat["count"]), prim=t(flat["prim"]), tri9=t(tri9),
+                     max_leaf=max_leaf, depth=bvh_depth(flat))
+
+
+def check_depth(bvh: DeviceBVH) -> None:
+    """Raise if a traversal stack could overflow on this BVH."""
+    if bvh.depth + 2 > STACK_CAP:
+        raise ValueError(
+            f"BVH depth {bvh.depth} needs more than the {STACK_CAP}-entry "
+            f"traversal stack (depth + 2 must be <= {STACK_CAP})")
+
+
+def _slab(ox, oy, oz, ix, iy, iz, nbox, nid, t_best):
+    """Component-major slab test of node nid."""
+    t0x = (nbox[0, nid] - ox) * ix
+    t1x = (nbox[3, nid] - ox) * ix
+    t0y = (nbox[1, nid] - oy) * iy
+    t1y = (nbox[4, nid] - oy) * iy
+    t0z = (nbox[2, nid] - oz) * iz
+    t1z = (nbox[5, nid] - oz) * iz
+    tn = torch.maximum(torch.maximum(torch.minimum(t0x, t1x),
+                                     torch.minimum(t0y, t1y)),
+                       torch.minimum(t0z, t1z))
+    tf = torch.minimum(torch.minimum(torch.maximum(t0x, t1x),
+                                     torch.maximum(t0y, t1y)),
+                       torch.maximum(t0z, t1z))
+    hit = (tf >= torch.clamp(tn, min=0.0)) & (tn < t_best)
+    return tn, hit
+
+
+def _traverse(o, d, t_max, bvh: DeviceBVH, anyhit: bool):
+    """Lockstep traversal of all rays. Returns the per-lane result arrays
+    (best_t, best_p, best_u, best_v, occ, visits, boxes, tests)."""
+    check_depth(bvh)
+    n = o.shape[0]
+    dev = o.device
+    n_tris = bvh.prim.shape[0]
+    ds = torch.where(torch.abs(d) < 1e-20, 1e-20, d)
+    inv = 1.0 / ds
+    s = dict(
+        lane=torch.arange(n, device=dev),
+        ox=o[:, 0], oy=o[:, 1], oz=o[:, 2],
+        dx=d[:, 0], dy=d[:, 1], dz=d[:, 2],
+        ix=inv[:, 0], iy=inv[:, 1], iz=inv[:, 2],
+        node=torch.zeros(n, dtype=torch.int64, device=dev),
+        cur_t=torch.zeros(n, dtype=torch.float32, device=dev),
+        sptr=torch.zeros(n, dtype=torch.int64, device=dev),
+        stack=torch.zeros((n, STACK_CAP), dtype=torch.int64, device=dev),
+        tstack=torch.zeros((n, STACK_CAP), dtype=torch.float32, device=dev),
+        best_t=torch.clamp(t_max, max=BIG_T),
+        best_p=torch.full((n,), -1, dtype=torch.int32, device=dev),
+        best_u=torch.zeros(n, dtype=torch.float32, device=dev),
+        best_v=torch.zeros(n, dtype=torch.float32, device=dev),
+        occ=torch.zeros(n, dtype=torch.bool, device=dev),
+        done=torch.zeros(n, dtype=torch.bool, device=dev),
+        visits=torch.zeros(n, dtype=torch.int32, device=dev),
+        boxes=torch.zeros(n, dtype=torch.int32, device=dev),
+        tests=torch.zeros(n, dtype=torch.int32, device=dev),
+    )
+    outputs = ("best_t", "best_p", "best_u", "best_v", "occ", "visits",
+               "boxes", "tests")
+    out = {k: s[k].clone() for k in outputs}
+
+    def step(s):
+        node = s["node"]
+        alive = ~s["done"]
+        prune = s["cur_t"] >= s["best_t"]
+        cnt = bvh.count[node]
+        is_leaf = alive & ~prune & (cnt > 0)
+        is_int = alive & ~prune & (cnt == 0)
+
+        first = bvh.left[node].to(torch.int64)
+        best_t, best_p = s["best_t"], s["best_p"]
+        best_u, best_v = s["best_u"], s["best_v"]
+        occ, tests = s["occ"], s["tests"]
+        for k in range(bvh.max_leaf):
+            slot = torch.clamp(first + k, 0, n_tris - 1)
+            pid = bvh.prim[slot]
+            g = bvh.tri9[:, pid]
+            t, u, v, h = mt_comp(s["ox"], s["oy"], s["oz"],
+                                 s["dx"], s["dy"], s["dz"],
+                                 g[0], g[1], g[2], g[3], g[4], g[5],
+                                 g[6], g[7], g[8], 1e-6, best_t)
+            live_k = is_leaf & (k < cnt)
+            h = h & live_k
+            best_p = torch.where(h, pid, best_p)
+            best_u = torch.where(h, u, best_u)
+            best_v = torch.where(h, v, best_v)
+            best_t = torch.where(h, t, best_t)
+            occ = occ | h
+            tests = tests + live_k.to(torch.int32)
+
+        # interior: test both children (leaf lanes index node 0, masked)
+        l = torch.where(is_int, bvh.left[node], 0).to(torch.int64)
+        rt = torch.where(is_int, bvh.right[node], 0).to(torch.int64)
+        ray = (s["ox"], s["oy"], s["oz"], s["ix"], s["iy"], s["iz"], bvh.nbox)
+        tl, hl = _slab(*ray, l, best_t)
+        tr, hr = _slab(*ray, rt, best_t)
+        hl = hl & is_int
+        hr = hr & is_int
+        both = hl & hr
+        any_h = hl | hr
+        near_is_l = tl <= tr
+        nnode = torch.where(both, torch.where(near_is_l, l, rt),
+                            torch.where(hl, l, rt))
+        nt = torch.where(both, torch.minimum(tl, tr), torch.where(hl, tl, tr))
+        fnode = torch.where(near_is_l, rt, l)
+        ft = torch.maximum(tl, tr)
+
+        sptr = s["sptr"]
+        stack, tstack = s["stack"], s["tstack"]
+        slot = sptr[:, None]
+        stack = stack.scatter(1, slot, torch.where(
+            both, fnode, stack.gather(1, slot)[:, 0])[:, None])
+        tstack = tstack.scatter(1, slot, torch.where(
+            both, ft, tstack.gather(1, slot)[:, 0])[:, None])
+        sptr = sptr + both.to(torch.int64)
+
+        if anyhit:
+            # stop at the first hit (OPTIX_RAY_FLAG_TERMINATE_ON_FIRST_HIT)
+            newly_occluded = occ & alive
+        else:
+            newly_occluded = torch.zeros_like(occ)
+        goto = any_h & ~newly_occluded
+        need_pop = alive & ~goto & ~newly_occluded
+        can_pop = need_pop & (sptr > 0)
+        done = s["done"] | (need_pop & (sptr == 0)) | newly_occluded
+
+        pidx = torch.clamp(sptr - 1, 0, STACK_CAP - 1)[:, None]
+        pnode = stack.gather(1, pidx)[:, 0]
+        pt = tstack.gather(1, pidx)[:, 0]
+        return dict(
+            s, node=torch.where(goto, nnode, torch.where(can_pop, pnode, node)),
+            cur_t=torch.where(goto, nt, torch.where(can_pop, pt, s["cur_t"])),
+            sptr=sptr - can_pop.to(torch.int64), stack=stack, tstack=tstack,
+            best_t=best_t, best_p=best_p, best_u=best_u, best_v=best_v,
+            occ=occ, done=done, tests=tests,
+            boxes=s["boxes"] + is_int.to(torch.int32),
+            visits=s["visits"] + alive.to(torch.int32))
+
+    while True:
+        for _ in range(STEPS_PER_CHECK):
+            s = step(s)
+        live = (~s["done"]).nonzero()[:, 0]
+        if live.numel() == 0 or 2 * live.numel() < s["lane"].numel():
+            for k in outputs:
+                out[k][s["lane"]] = s[k]
+            if live.numel() == 0:
+                return out
+            s = {k: v[live] for k, v in s.items()}
+
+
+def bvh_intersect(o, d, bvh: DeviceBVH, t_max=BIG_T, stats: bool = False):
+    """Closest hit of [N] rays. Returns (t, prim, u, v) with prim = -1 and
+    t = min(t_max, BIG_T) on a miss; with stats=True also the int32 [3, N]
+    per-ray counts (steps, box-pair tests, triangle tests)."""
+    t_max = torch.broadcast_to(torch.as_tensor(t_max, dtype=torch.float32,
+                                               device=o.device),
+                               (o.shape[0],))
+    r = _traverse(o, d, t_max, bvh, anyhit=False)
+    res = (r["best_t"], r["best_p"], r["best_u"], r["best_v"])
+    if stats:
+        return res + (torch.stack([r["visits"], r["boxes"], r["tests"]]),)
+    return res
+
+
+def bvh_occluded(o, d, t_max, bvh: DeviceBVH, stats: bool = False):
+    """Any-hit occlusion of [N] rays before t_max. Returns bool [N] (and the
+    [3, N] counts with stats=True; the plain version tests a whole leaf
+    before stopping, the kernel stops at the first hit)."""
+    t_max = torch.broadcast_to(torch.as_tensor(t_max, dtype=torch.float32,
+                                               device=o.device),
+                               (o.shape[0],))
+    r = _traverse(o, d, t_max, bvh, anyhit=True)
+    if stats:
+        return r["occ"], torch.stack([r["visits"], r["boxes"], r["tests"]])
+    return r["occ"]
+
+
+def refine_hit(o, d, prim, tri9):
+    """Recompute (t, u, v) for a known hit primitive (forward only; the
+    clipped backward comes with the training slice). Returns
+    (t, u, v, ok); ok is False where the re-test loses the hit."""
+    p = torch.clamp(prim, min=0)
+    g9 = tri9[:, p]
+    t, u, v, h = mt_comp(o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2],
+                         g9[0], g9[1], g9[2], g9[3], g9[4], g9[5], g9[6],
+                         g9[7], g9[8], -BIG_T, BIG_T, det_eps=1e-6)
+    valid = prim >= 0
+    return (torch.where(valid, t, BIG_T), torch.where(valid, u, 0.0),
+            torch.where(valid, v, 0.0), valid & h)

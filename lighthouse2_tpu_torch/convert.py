@@ -1,0 +1,39 @@
+"""Carry a scene across from the JAX package as plain numpy arrays.
+
+`scene_from_numpy` takes a flat dict keyed "<group>.<field>", where group is
+one of tris, materials, lights, sky, textures, bvh (the fields of the JAX
+package's DeviceScene and its DeviceBVH) or view (a ViewPyramid), and the
+values are numpy arrays, or ints for the static counts (lights.s_tri,
+materials.s_base_maps, bvh.max_leaf, ...). Unknown fields are ignored. The
+caller flattens its objects with np.asarray; no JAX type reaches the port.
+That lets both packages compute on the same BVH topology.
+"""
+from __future__ import annotations
+
+from lighthouse2_tpu_torch.bvh.builder import bvh_depth
+from lighthouse2_tpu_torch.bvh.traverse import DeviceBVH
+from lighthouse2_tpu_torch.core.types import ViewPyramid
+from lighthouse2_tpu_torch.device import resolve_device
+from lighthouse2_tpu_torch.scene.device_scene import (
+    DeviceLights, DeviceMaterials, DeviceScene, DeviceSky, DeviceTextures,
+    DeviceTriangles, to_device)
+
+_GROUPS = dict(tris=DeviceTriangles, materials=DeviceMaterials,
+               lights=DeviceLights, sky=DeviceSky, textures=DeviceTextures,
+               bvh=DeviceBVH, view=ViewPyramid)
+
+
+def scene_from_numpy(arrays: dict, device=None):
+    """Returns (DeviceScene, ViewPyramid) on `device` (see
+    device.resolve_device); the view is None when no view.* keys exist."""
+    dev = resolve_device(device)
+    parts = {g: {} for g in _GROUPS}
+    for key, value in arrays.items():
+        group, _, field = key.partition(".")
+        if group in parts:
+            parts[group][field] = value
+    parts["bvh"]["depth"] = bvh_depth(parts["bvh"])
+    objs = {g: to_device(cls, parts[g], dev) for g, cls in _GROUPS.items()
+            if g != "view"}
+    view = to_device(ViewPyramid, parts["view"], dev) if parts["view"] else None
+    return DeviceScene(**objs), view

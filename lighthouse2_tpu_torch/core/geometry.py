@@ -1,0 +1,114 @@
+"""Vector math and intersection primitives on [..., 3] float32 tensors.
+
+Counterpart of lighthouse2_tpu/core/geometry.py: dot, cross, normalize,
+reflect, onb, oriented_frame, tangent_to_world, safe_origin,
+consistent_normal and mt_comp, with the same arithmetic in the same order.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+EPSILON = 1e-6
+BIG_T = 1e30
+
+
+def dot(a, b):
+    return (a * b).sum(-1)
+
+
+def cross(a, b):
+    return torch.linalg.cross(a, b, dim=-1)
+
+
+def normalize(a):
+    return a * torch.rsqrt(torch.clamp(dot(a, a), min=1e-20))[..., None]
+
+
+def reflect(d, n):
+    """Mirror reflection of direction d about normal n."""
+    return d - 2.0 * dot(d, n)[..., None] * n
+
+
+def onb(n):
+    """Build (tangent, bitangent) for unit normal n. Branchless Pixar ONB
+    (tools_shared.h:211-240)."""
+    sign = torch.where(n[..., 2] >= 0.0, 1.0, -1.0)
+    a = -1.0 / (sign + n[..., 2])
+    b = n[..., 0] * n[..., 1] * a
+    t = torch.stack([1.0 + sign * n[..., 0] * n[..., 0] * a, sign * b,
+                     -sign * n[..., 0]], dim=-1)
+    bt = torch.stack([b, sign + n[..., 1] * n[..., 1] * a, -n[..., 1]], dim=-1)
+    return t, bt
+
+
+def oriented_frame(n, tangent, bitangent):
+    """Shading frame aligned to the uv tangent when one exists; zero
+    tangents fall back to the branchless ONB."""
+    t_proj = tangent - n * (n * tangent).sum(-1, keepdim=True)
+    tl = torch.sqrt(torch.clamp((t_proj * t_proj).sum(-1, keepdim=True),
+                                min=1e-20))
+    has = ((tangent * tangent).sum(-1, keepdim=True) > 0.25) & (tl > 1e-6)
+    t_uv = t_proj / tl
+    b_uv = cross(n, t_uv)
+    sign = torch.where((b_uv * bitangent).sum(-1, keepdim=True) < 0.0,
+                       -1.0, 1.0)
+    b_uv = b_uv * sign
+    t_onb, b_onb = onb(n)
+    return torch.where(has, t_uv, t_onb), torch.where(has, b_uv, b_onb)
+
+
+def tangent_to_world(v, n):
+    t, b = onb(n)
+    return v[..., 0:1] * t + v[..., 1:2] * b + v[..., 2:3] * n
+
+
+def safe_origin(o, r, n, geo_epsilon):
+    """Offset origin o along ray r / normal n blended by parallel-ness^2
+    (tools_shared.h:279-293)."""
+    parallel = 1.0 - torch.abs(dot(r, n))
+    v = parallel * parallel
+    return (o + (1.0 - v)[..., None] * (geo_epsilon * n)
+            + v[..., None] * (geo_epsilon * r))
+
+
+def consistent_normal(d, n, alpha):
+    """Bend the interpolated shading normal n so reflections of d stay above
+    the surface (Reshetov 2010; tools_shared.h:297-311)."""
+    q = (1.0 - (2.0 / math.pi) * alpha)
+    q = (q * q) / (1.0 + 2.0 * (1.0 - (2.0 / math.pi) * alpha))
+    b = dot(-d, n)
+    g = 1.0 + q * (b - 1.0)
+    rho = torch.sqrt(torch.clamp(
+        q * (1.0 + g) / torch.clamp(1.0 + b, min=1e-6), min=1e-12))
+    r = (g + rho * b)[..., None] * n - rho[..., None] * (-d)
+    return normalize(-d + r)
+
+
+def mt_comp(ox, oy, oz, dx, dy, dz,
+            v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z,
+            t_min, t_max, det_eps=1e-9):
+    """Component-major Möller–Trumbore (common.h:19-51). Broadcasts.
+
+    The trace kernels (csrc/trace.cu) repeat this arithmetic operation for
+    operation; keep the two in step. Returns (t, u, v, hit), t = BIG_T
+    where there is no hit."""
+    hx = dy * e2z - dz * e2y
+    hy = dz * e2x - dx * e2z
+    hz = dx * e2y - dy * e2x
+    a = e1x * hx + e1y * hy + e1z * hz
+    valid = torch.abs(a) > det_eps
+    f = 1.0 / torch.where(valid, a, 1.0)
+    sx = ox - v0x
+    sy = oy - v0y
+    sz = oz - v0z
+    u = f * (sx * hx + sy * hy + sz * hz)
+    qx = sy * e1z - sz * e1y
+    qy = sz * e1x - sx * e1z
+    qz = sx * e1y - sy * e1x
+    v = f * (dx * qx + dy * qy + dz * qz)
+    t = f * (e2x * qx + e2y * qy + e2z * qz)
+    hit = (valid & (u >= 0.0) & (u <= 1.0) & (v >= 0.0) & (u + v <= 1.0)
+           & (t > t_min) & (t < t_max))
+    return torch.where(hit, t, BIG_T), u, v, hit

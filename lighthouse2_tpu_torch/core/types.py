@@ -1,0 +1,75 @@
+"""Render configuration and the camera frustum.
+
+Counterpart of lighthouse2_tpu/core/types.py (RenderConfig, ViewPyramid).
+Differences: RenderConfig has no `dtype` field (the port computes in
+float32 throughout), and ViewPyramid is a plain dataclass of tensors instead
+of a flax pytree.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class RenderConfig:
+    """Static render configuration (field meanings as in the JAX package).
+
+    The port implements the path-regeneration executor with the Lambert
+    BSDF; render entry points reject the options it does not implement yet
+    (disney, filter, sky_ibl, the classic executor)."""
+    width: int = 512
+    height: int = 512
+    spp_per_pass: int = 1
+    max_path_length: int = 16
+    max_diffuse_bounces: int = 1000
+    russian_roulette: bool = True
+    clamp_fireflies: bool = True
+    consistent_normals: bool = True
+    bsdf: str = "lambert"
+    geometry_epsilon: float = 1e-4
+    clamp_value: float = 10.0
+    clamp_direct: float = 15.0
+    clamp_indirect: float = 2.5
+    filter_enabled: bool = False
+    taa_enabled: bool = False
+    max_is_lights: int = 8
+    tri_chunk: int = 1024
+    use_bvh: bool = True
+    intersector: str = "auto"
+    blue_noise: bool = True
+    sky_ibl: bool = False
+    kernel_interpret: bool = False
+    tile_order: bool = True
+    ray_sort: bool = True
+    shadow_sort: bool = True
+    scene_sharded: bool = False
+    path_regen: bool = False
+    remat: bool = False
+
+    def tiled(self) -> bool:
+        return (self.tile_order and self.width % 32 == 0
+                and self.height % 32 == 0)
+
+    @property
+    def n_paths(self) -> int:
+        return self.width * self.height * self.spp_per_pass
+
+
+@dataclasses.dataclass
+class ViewPyramid:
+    """Camera frustum handed to the renderer (common_classes.h:362-385).
+
+    p1/p2/p3 = top-left / top-right / bottom-left of the image plane at the
+    focal distance. Vectors are [3] float32 tensors, scalars 0-d tensors,
+    all on the render device."""
+    pos: torch.Tensor
+    p1: torch.Tensor
+    p2: torch.Tensor
+    p3: torch.Tensor
+    aperture: torch.Tensor
+    spread_angle: torch.Tensor
+    image_plane: torch.Tensor
+    focal_distance: torch.Tensor
+    distortion: torch.Tensor

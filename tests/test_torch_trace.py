@@ -1,0 +1,178 @@
+"""The trace kernels' plain versions against the JAX package's trace paths.
+
+lighthouse2_tpu_torch/render/kernels/trace.py launches csrc/trace.cu for CUDA
+tensors and runs the plain PyTorch version (bvh/traverse.py) for CPU
+tensors, which is what runs here; chip_smoke.py holds the CUDA kernels
+against the plain version on the card. Here the plain version is held
+against
+  - the JAX Pallas kernels in interpret mode (trace_cluster_bvh), as
+    tests/test_cluster_kernel.py runs them: prim equal, t within rtol 2e-4
+    (the Pallas kernel computes t from MXU plane forms, not Moller-Trumbore);
+  - the JAX lockstep traversal (bvh_intersect, bvh_occluded) on the same
+    topology: prim, visits and occlusion equal, t/u/v within float32 noise.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from lighthouse2_tpu.bvh.builder import build_sah_bvh_numpy as jbuild
+from lighthouse2_tpu.bvh.clusters import PAY_PRIM, cut_clusters
+from lighthouse2_tpu.bvh.traverse import (
+    bvh_intersect_counts, bvh_occluded, device_bvh_from_flat as jdevice_bvh)
+from lighthouse2_tpu.render.kernels.trace import trace_cluster_bvh
+from lighthouse2_tpu_torch.bvh.builder import build_sah_bvh_numpy
+from lighthouse2_tpu_torch.bvh.traverse import STACK_CAP, device_bvh_from_flat
+from lighthouse2_tpu_torch.core.geometry import BIG_T
+from lighthouse2_tpu_torch.render.kernels.trace import (
+    trace_closest, trace_occluded)
+
+torch.set_num_threads(1)
+
+
+def _scene(n_tris, seed=0):
+    rng = np.random.default_rng(seed)
+    c = rng.uniform(-1, 1, (n_tris, 3)).astype(np.float32)
+    return tuple(c + rng.uniform(-0.1, 0.1, (n_tris, 3)).astype(np.float32)
+                 for _ in range(3))
+
+
+def _rays(n, seed=1):
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(-3, 3, (n, 3)).astype(np.float32)
+    d = rng.uniform(-1, 1, (n, 3)).astype(np.float32) - o    # into the scene
+    d = d / np.linalg.norm(d, axis=-1, keepdims=True)
+    return o, d
+
+
+@pytest.fixture(scope="module")
+def setup():
+    v0, v1, v2 = _scene(500)
+    flat = build_sah_bvh_numpy(v0, v1, v2)
+    bvh = device_bvh_from_flat(flat, v0, v1, v2, "cpu")
+    o, d = _rays(2048)
+    return dict(v=(v0, v1, v2), flat=flat, bvh=bvh, o=o, d=d)
+
+
+def test_closest_matches_pallas_interpret(setup):
+    v0, v1, v2 = setup["v"]
+    cb = cut_clusters(jbuild(v0, v1, v2), dict(v0=v0, v1=v1, v2=v2))
+    o, d = setup["o"], setup["d"]
+    jt, payload = trace_cluster_bvh(jnp.asarray(o), jnp.asarray(d), cb, BIG_T,
+                                    interpret=True)
+    jp = np.asarray(payload[PAY_PRIM])
+    jp = np.where(jp >= 0, jp.astype(np.int64), -1)
+    t, prim, _, _ = trace_closest(torch.from_numpy(o), torch.from_numpy(d),
+                                  BIG_T, setup["bvh"])
+    np.testing.assert_array_equal(prim.numpy(), jp)
+    hit = jp >= 0
+    assert hit.sum() > 500
+    np.testing.assert_allclose(t.numpy()[hit], np.asarray(jt)[hit], rtol=2e-4)
+
+
+def test_occluded_matches_pallas_interpret(setup):
+    v0, v1, v2 = _scene(300, seed=4)
+    cb = cut_clusters(jbuild(v0, v1, v2), dict(v0=v0, v1=v1, v2=v2))
+    bvh = device_bvh_from_flat(build_sah_bvh_numpy(v0, v1, v2), v0, v1, v2,
+                               "cpu")
+    o, d = _rays(1024, seed=5)
+    tmax = np.full(1024, 1.5, np.float32)
+    want = np.asarray(trace_cluster_bvh(jnp.asarray(o), jnp.asarray(d), cb,
+                                        jnp.asarray(tmax), anyhit=True,
+                                        interpret=True))
+    got = trace_occluded(torch.from_numpy(o), torch.from_numpy(d),
+                         torch.from_numpy(tmax), bvh).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert 0 < want.sum() < want.size
+
+
+def test_matches_jax_lockstep(setup):
+    v0, v1, v2 = setup["v"]
+    jbvh = jdevice_bvh(setup["flat"], v0, v1, v2)
+    o, d = setup["o"], setup["d"]
+    tmax = np.random.default_rng(6).uniform(0.5, 4, o.shape[0]).astype(np.float32)
+    jt, jp, ju, jv, jvis = bvh_intersect_counts(jnp.asarray(o), jnp.asarray(d),
+                                                jbvh, t_max=jnp.asarray(tmax))
+    t, p, u, v, st = trace_closest(torch.from_numpy(o), torch.from_numpy(d),
+                                   torch.from_numpy(tmax), setup["bvh"],
+                                   stats=True)
+    np.testing.assert_array_equal(p.numpy(), np.asarray(jp))
+    np.testing.assert_array_equal(st[0].numpy(), np.asarray(jvis))
+    np.testing.assert_allclose(t.numpy(), np.asarray(jt), rtol=1e-6)
+    # XLA's CPU backend contracts multiply-adds into FMAs and torch does
+    # not; 1/det amplifies that last-bit difference on grazing hits
+    np.testing.assert_allclose(u.numpy(), np.asarray(ju), atol=5e-5)
+    np.testing.assert_allclose(v.numpy(), np.asarray(jv), atol=5e-5)
+    occ = trace_occluded(torch.from_numpy(o), torch.from_numpy(d),
+                         torch.from_numpy(tmax), setup["bvh"]).numpy()
+    np.testing.assert_array_equal(
+        occ, np.asarray(bvh_occluded(jnp.asarray(o), jnp.asarray(d),
+                                     jnp.asarray(tmax), jbvh)))
+    np.testing.assert_array_equal(occ, p.numpy() >= 0)
+
+
+def test_dead_lanes_miss(setup):
+    o, d = (torch.from_numpy(a) for a in (setup["o"], setup["d"]))
+    tmax = torch.where(torch.arange(o.shape[0]) % 2 == 0, BIG_T, 0.0)
+    tmax[1::4] = -1.0
+    t, prim, _, _ = trace_closest(o, d, tmax, setup["bvh"])
+    assert (prim[1::2] == -1).all() and (prim[0::2] >= 0).any()
+    assert torch.equal(t[1::2], tmax[1::2])
+    occ = trace_occluded(o, d, tmax, setup["bvh"])
+    assert not occ[1::2].any() and occ[0::2].any()
+
+
+def _comb_bvh(depth):
+    """A valid BVH whose right spine is `depth` interior nodes long."""
+    rng = np.random.default_rng(7)
+    n = depth + 1
+    v0 = rng.uniform(-1, 1, (n, 3)).astype(np.float32)
+    v1, v2 = v0 + 0.1, v0 + np.float32([0.1, -0.1, 0.0])
+    m = 2 * depth + 1
+    left = np.zeros(m, np.int32)
+    right = np.full(m, -1, np.int32)
+    count = np.ones(m, np.int32)
+    for i in range(depth):
+        left[2 * i], right[2 * i], count[2 * i] = 2 * i + 1, 2 * i + 2, 0
+        left[2 * i + 1] = i
+    left[2 * depth] = depth
+    flat = dict(nmin=np.full((m, 3), -2, np.float32),
+                nmax=np.full((m, 3), 2, np.float32), left=left, right=right,
+                count=count, prim=np.arange(n, dtype=np.int32))
+    return device_bvh_from_flat(flat, v0, v1, v2, "cpu")
+
+
+def test_stack_capacity_is_checked(setup):
+    ok = _comb_bvh(STACK_CAP - 2)
+    assert ok.depth == STACK_CAP - 2
+    o, d = (torch.from_numpy(a[:64]) for a in (setup["o"], setup["d"]))
+    trace_closest(o, d, BIG_T, ok)
+    deep = _comb_bvh(STACK_CAP - 1)
+    with pytest.raises(ValueError, match="depth"):
+        trace_closest(o, d, BIG_T, deep)
+    with pytest.raises(ValueError, match="depth"):
+        trace_occluded(o, d, BIG_T, deep)
+
+
+def test_non_cpu_tensors_never_take_the_plain_path(setup):
+    """A tensor that is not on the CPU goes to the kernel route or raises:
+    here (no card) a CUDA request raises, and a meta tensor is refused."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card")
+    from lighthouse2_tpu_torch.convert import scene_from_numpy
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        scene_from_numpy({}, "cuda")
+    from lighthouse2_tpu_torch.bvh import traverse as tv
+    from lighthouse2_tpu_torch.render.kernels import trace as tk
+    meta = lambda x: x.to("meta")
+    b = setup["bvh"]
+    mbvh = tv.DeviceBVH(nbox=meta(b.nbox), left=meta(b.left),
+                        right=meta(b.right), count=meta(b.count),
+                        prim=meta(b.prim), tri9=meta(b.tri9), depth=b.depth)
+    o = torch.zeros((8, 3), device="meta")
+    before = tk.trace_closest.launches
+    with pytest.raises(ValueError, match="unsupported device"):
+        trace_closest(o, o, 1.0, mbvh)
+    with pytest.raises(ValueError, match="unsupported device"):
+        trace_occluded(o, o, 1.0, mbvh)
+    assert tk.trace_closest.launches == before

@@ -1,0 +1,117 @@
+"""The port's wavefront renderer against the JAX package.
+
+  - generate_eye_rays, lane by lane (rtol 1e-5 / atol 1e-6: sin, cos, atan2
+    and rsqrt round differently in the last bit);
+  - the slice as a whole: two regen passes on a 32x32 Cornell box, path 4,
+    through the port on the CPU (the trace kernels' plain versions) and the
+    JAX package with intersector="lockstep" (its plain reference for the
+    trace kernels, shading through the same gather path), on the same
+    carried-across scene and view.
+Per-pixel accumulators are compared as the fraction of pixels within
+rtol 1e-3 / atol 1e-4, required >= 99%: XLA and torch round transcendentals
+differently, and one flipped Russian-roulette or BSDF decision legitimately
+changes a whole lane from then on. A global max would fail on such a lane.
+The image mean must agree within 1e-3 relative, and the per-pixel sample
+counts and ray totals may differ only on the pixels counted as differing.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from lighthouse2_tpu.core.types import RenderConfig as JConfig
+from lighthouse2_tpu.render import wavefront as jwf
+from lighthouse2_tpu.scene import presets as jpresets
+from lighthouse2_tpu_torch.convert import scene_from_numpy
+from lighthouse2_tpu_torch.core.types import RenderConfig
+from lighthouse2_tpu_torch.render import wavefront as twf
+from test_torch_scene import jax_scene_arrays
+
+torch.set_num_threads(1)
+
+PIXELS_CLOSE = 0.99
+MEAN_RTOL = 1e-3
+
+
+@pytest.fixture(scope="module")
+def cornell():
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("LH2_NO_NATIVE", "1")
+        host, cam = jpresets.cornell_box(32, 32)
+        jds = host.sync(two_level=False)
+    jview = cam.get_view()
+    tds, tview = scene_from_numpy(jax_scene_arrays(jds, jview), "cpu")
+    return jds, jview, tds, tview
+
+
+@pytest.mark.parametrize("w,h,lens", [(64, 64, False), (40, 24, True)])
+def test_generate_eye_rays_per_lane(cornell, w, h, lens):
+    _, jview, _, tview = cornell
+    if lens:      # aperture and barrel distortion on, not tile-ordered
+        jview = jview.replace(aperture=jnp.float32(0.05),
+                              distortion=jnp.float32(0.1))
+        tview = dataclasses.replace(tview, aperture=torch.tensor(0.05),
+                                    distortion=torch.tensor(0.1))
+    jcfg = JConfig(width=w, height=h, spp_per_pass=2)
+    tcfg = RenderConfig(width=w, height=h, spp_per_pass=2)
+    sample = np.random.default_rng(0).integers(0, 600, jcfg.n_paths)
+    want = jwf.generate_eye_rays(jview, jcfg, 0,
+                                 sample_idx=jnp.asarray(sample, jnp.uint32))
+    got = twf.generate_eye_rays(tview, tcfg, 0,
+                                sample_idx=torch.from_numpy(sample))
+    for k in ("path_idx", "pixel", "sample"):
+        np.testing.assert_array_equal(got[k].numpy(),
+                                      np.asarray(want[k]).astype(np.int64),
+                                      err_msg=k)
+    for k in ("origin", "dir"):
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
+                                   rtol=1e-5, atol=1e-6, err_msg=k)
+    for k in ("throughput", "bsdf_pdf", "prev_specular", "n_diffuse", "alive"):
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]),
+                                      err_msg=k)
+
+
+def test_regen_slice_matches_jax_lockstep(cornell):
+    jds, jview, tds, tview = cornell
+    jcfg = JConfig(width=32, height=32, max_path_length=4, path_regen=True,
+                   intersector="lockstep")
+    tcfg = RenderConfig(width=32, height=32, max_path_length=4,
+                        path_regen=True)
+    jstate = jwf.AccumState.make(jcfg)
+    tstate = twf.AccumState.make(tcfg, "cpu")
+    jtot = np.zeros(2, np.int64)
+    ttot = np.zeros(2, np.int64)
+    for _ in range(2):
+        jstate, js = jwf.render_pass_regen(jds, jview, jstate, jcfg)
+        tstate, ts = twf.render_pass(tds, tview, tstate, tcfg)
+        jtot += [int(js["total_extension"]), int(js["total_shadow"])]
+        ttot += [int(ts["total_extension"]), int(ts["total_shadow"])]
+    jax.block_until_ready(jstate.accumulator)
+    assert tstate.sample_count == 2 and tstate.cam_seed == int(jstate.cam_seed)
+
+    ja, ta = np.asarray(jstate.accumulator), tstate.accumulator.numpy()
+    close = np.isclose(ta, ja, rtol=1e-3, atol=1e-4).all(-1)
+    assert close.mean() >= PIXELS_CLOSE, close.mean()
+    n_diff = int((~close).sum())
+
+    jc, tc = np.asarray(jstate.pixel_count), tstate.pixel_count.numpy()
+    assert ((jc != tc) <= ~close).all()
+    assert jtot[0] == ttot[0] == 2 * 4 * 32 * 32
+    assert abs(jtot[1] - ttot[1]) <= n_diff * 2 * 4
+
+    ji = np.asarray(jwf.finalize(jstate))
+    ti = twf.finalize(tstate).numpy()
+    assert np.isfinite(ti).all() and ti.mean() > 0
+    assert abs(ti.mean() - ji.mean()) <= MEAN_RTOL * abs(ji.mean())
+
+
+def test_render_pass_rejects_unported_options(cornell):
+    _, _, tds, tview = cornell
+    for kw in (dict(path_regen=False), dict(path_regen=True, bsdf="disney"),
+               dict(path_regen=True, sky_ibl=True)):
+        cfg = RenderConfig(width=32, height=32, max_path_length=2, **kw)
+        with pytest.raises(ValueError, match="does not support"):
+            twf.render_pass(tds, tview, twf.AccumState.make(cfg, "cpu"), cfg)
