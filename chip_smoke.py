@@ -9,11 +9,14 @@ toolkit (nvcc on PATH or under /usr/local/cuda):
 Phases; any failure exits non-zero before the result line is printed:
   1. the card, torch / CUDA / nvcc versions; build csrc/trace.cu with nvcc
      for sm_90a and print its -Xptxas -v report;
-  2. both trace kernels against their plain PyTorch versions on the full
-     bathroom scene (129,252 triangles) for the 512x512 primary rays, the
-     bounce-1 rays of one shade_bounce and that bounce's NEE shadow batch:
-     prim, t and occlusion agreement (>= 99.99% of lanes), and CUDA-event
-     times of kernel and plain version;
+  2. both trace kernels on the full bathroom scene (129,252 triangles) for
+     the 512x512 primary rays, the bounce-1 rays of one shade_bounce and
+     that bounce's NEE shadow batch, against two references: their plain
+     version, the BVH4 walk of bvh/wide.py (t, prim, u, v, occlusion and the
+     per-ray counts equal on every lane), and the BVH2 walk of
+     bvh/traverse.py (prim and occlusion on >= 99.99% of lanes); CUDA-event
+     times of kernel and plain version, Grays/s, and the bound computed from
+     the BVH2 walk's counts;
   3. the main path: bathroom 512x512, path 16, path regeneration, through
      render_pass — 1 warm-up and 3 timed passes; Mrays/s (extension +
      shadow rays), per-bounce ray counts, peak memory, the image; each
@@ -32,12 +35,15 @@ import sys
 import time
 
 KERNEL_ITERS = 20          # timed launches per kernel and batch
+PLAIN_ITERS = 3            # timed calls per plain version and batch
 AGREE_MIN = 0.9999         # fraction of lanes that must agree
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, FP32 outside tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
-# floating-point operations of one interior step (two child slab tests) and
-# of one Moller-Trumbore test, counted from csrc/trace.cu
+# floating-point operations of one BVH2 interior step (two child slab tests)
+# and of one Moller-Trumbore test, counted from the BVH2 walk: the bound
+# counts the BVH2 walk's work, whatever walks it, so shares compare across
+# layouts
 SLAB_PAIR_OPS = 50
 MT_OPS = 54
 
@@ -74,17 +80,15 @@ def _bound(n_bytes, n_ops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def check_kernels(scene, view, cfg, dev, iters):
-    """Phase 2. Returns {kernel name: {batch: numbers}}."""
+def trace_batches(scene, view, cfg, dev):
+    """The three fixed ray batches {name: (o, d, tmax)}: the regen pool's
+    primary rays, the bounce-1 rays of one shade_bounce and that bounce's
+    NEE shadow rays."""
     import torch
-    from lighthouse2_tpu_torch.bvh.traverse import bvh_intersect, bvh_occluded
     from lighthouse2_tpu_torch.core.geometry import BIG_T
     from lighthouse2_tpu_torch.core.rng import CAM_RNG_SEED
     from lighthouse2_tpu_torch.render import wavefront as wf
-    from lighthouse2_tpu_torch.render.kernels.trace import (
-        trace_closest, trace_occluded)
 
-    bvh = scene.bvh
     paths, depth, _ = wf.make_regen_pool(view, cfg)
     n = depth.shape[0]
     t, prim, u, v = wf._intersect(scene, paths["origin"], paths["dir"],
@@ -98,55 +102,84 @@ def check_kernels(scene, view, cfg, dev, iters):
         bounce1=(paths1["origin"], paths1["dir"],
                  torch.where(paths1["alive"], BIG_T, 0.0)),
         shadow=(shadow["o"], shadow["d"], shadow["tmax"]))
+    return {k: tuple(x.contiguous() for x in b) for k, b in batches.items()}
+
+
+def check_kernels(scene, view, cfg, dev, iters, plain_iters):
+    """Phase 2. Returns {kernel name: {batch: numbers}}."""
+    from lighthouse2_tpu_torch.bvh.traverse import bvh_intersect, bvh_occluded
+    from lighthouse2_tpu_torch.bvh.wide import wide_intersect, wide_occluded
+    from lighthouse2_tpu_torch.render.kernels.trace import (
+        trace_closest, trace_occluded)
+
+    bvh = scene.bvh
+    batches = trace_batches(scene, view, cfg, dev)
+    n = batches["primary"][0].shape[0]
+    # the bound reads the BVH2 arrays once, whatever layout the kernel walks
     scene_bytes = sum(x.numel() * x.element_size() for x in (
         bvh.nbox, bvh.left, bvh.right, bvh.count, bvh.prim, bvh.tri9))
     out = {"trace_closest": {}, "trace_occluded": {}}
     for name, (o, d, tmax) in batches.items():
-        o, d, tmax = o.contiguous(), d.contiguous(), tmax.contiguous()
         kt, kp, ku, kv, kst = trace_closest(o, d, tmax, bvh, stats=True)
-        pt, pp, pu, pv, pst = bvh_intersect(o, d, bvh, t_max=tmax, stats=True)
+        wt, wp, wu, wv, wst = wide_intersect(o, d, bvh, t_max=tmax, stats=True)
         ko, kost = trace_occluded(o, d, tmax, bvh, stats=True)
-        po = bvh_occluded(o, d, tmax, bvh)
-        match = kp == pp
-        hits = match & (pp >= 0)
-        dt = (kt - pt).abs()[hits]
-        rel = (dt / pt.abs()[hits].clamp(min=1e-30))
-        prim_frac = match.float().mean().item()
-        occ_frac = (ko == po).float().mean().item()
+        wo, wost = wide_occluded(o, d, tmax, bvh, stats=True)
+        _, bp, _, _, bst = bvh_intersect(o, d, bvh, t_max=tmax, stats=True)
+        bo, bost = bvh_occluded(o, d, tmax, bvh, stats=True)
+        eq = lambda a, b: (a == b).float().mean().item()
+        hits = kp >= 0
+        dt = (kt - wt).abs()
         c = dict(
-            rays=n, live=int((tmax > 0).sum()), hits=int((pp >= 0).sum()),
-            prim_match=prim_frac, occ_match=occ_frac,
-            t_mean_rel_err=rel.mean().item() if hits.any() else 0.0,
-            t_max_abs_err=dt.max().item() if hits.any() else 0.0,
-            uv_max_abs_err=max((ku - pu).abs()[hits].max().item(),
-                               (kv - pv).abs()[hits].max().item())
-            if hits.any() else 0.0,
-            counts_match=(kst == pst).all(0).float().mean().item(),
+            rays=n, live=int((tmax > 0).sum()), hits=int(hits.sum()),
+            # against the plain BVH4 walk: every lane, bit for bit
+            t_match=eq(kt, wt), prim_match=eq(kp, wp), u_match=eq(ku, wu),
+            v_match=eq(kv, wv), occ_match=eq(ko, wo),
+            counts_match=(kst == wst).all(0).float().mean().item(),
+            occ_counts_match=(kost == wost).all(0).float().mean().item(),
+            t_max_abs_err=dt.max().item(),
+            # against the BVH2 walk: the same hits, up to exact t-ties
+            bvh2_prim_match=eq(kp, bp), bvh2_occ_match=eq(ko, bo),
             occluded=int(ko.sum()),
             mean_steps=kst[0].float().mean().item(),
-            mean_tri_tests=kst[2].float().mean().item())
+            mean_boxes=kst[1].float().mean().item(),
+            mean_tri_tests=kst[2].float().mean().item(),
+            bvh2_mean_steps=bst[0].float().mean().item(),
+            bvh2_mean_boxes=2 * bst[1].float().mean().item(),
+            bvh2_mean_tri_tests=bst[2].float().mean().item(),
+            occ_mean_steps=kost[0].float().mean().item())
         print(f"[kernels] {name}: " + json.dumps(c), flush=True)
-        if prim_frac < AGREE_MIN or occ_frac < AGREE_MIN:
-            raise AssertionError(f"kernel/plain agreement below {AGREE_MIN} "
-                                 f"on {name}: prim {prim_frac}, occ {occ_frac}")
+        exact = ("t_match", "prim_match", "u_match", "v_match", "occ_match",
+                 "counts_match", "occ_counts_match")
+        if any(c[k] != 1.0 for k in exact):
+            raise AssertionError(f"kernel and plain BVH4 walk differ on {name}: "
+                                 + str({k: c[k] for k in exact}))
+        if c["bvh2_prim_match"] < AGREE_MIN or c["bvh2_occ_match"] < AGREE_MIN:
+            raise AssertionError(f"kernel/BVH2 agreement below {AGREE_MIN} on "
+                                 f"{name}: prim {c['bvh2_prim_match']}, "
+                                 f"occ {c['bvh2_occ_match']}")
         ck = _time_ms(lambda: trace_closest(o, d, tmax, bvh), iters, dev)
-        cp = _time_ms(lambda: bvh_intersect(o, d, bvh, t_max=tmax), iters, dev)
+        cp = _time_ms(lambda: wide_intersect(o, d, bvh, t_max=tmax),
+                      plain_iters, dev)
         ok_ = _time_ms(lambda: trace_occluded(o, d, tmax, bvh), iters, dev)
-        op = _time_ms(lambda: bvh_occluded(o, d, tmax, bvh), iters, dev)
+        op = _time_ms(lambda: wide_occluded(o, d, tmax, bvh), plain_iters, dev)
         ray_bytes = n * (12 + 12 + 4)
-        c_ops = int(kst[1].sum()) * SLAB_PAIR_OPS + int(kst[2].sum()) * MT_OPS
-        o_ops = int(kost[1].sum()) * SLAB_PAIR_OPS + int(kost[2].sum()) * MT_OPS
+        c_ops = int(bst[1].sum()) * SLAB_PAIR_OPS + int(bst[2].sum()) * MT_OPS
+        o_ops = int(bost[1].sum()) * SLAB_PAIR_OPS + int(bost[2].sum()) * MT_OPS
         cb, cbb = _bound(ray_bytes + n * 16 + scene_bytes, c_ops)
         ob, obb = _bound(ray_bytes + n + scene_bytes, o_ops)
         out["trace_closest"][name] = dict(
             ms=ck, plain_ms=cp, bound_ms=cb, bound_by=cbb,
-            max_abs_err=c["t_max_abs_err"], ops=c_ops)
+            max_abs_err=c["t_max_abs_err"], ops=c_ops,
+            grays_per_s=n / ck / 1e6)
         out["trace_occluded"][name] = dict(
             ms=ok_, plain_ms=op, bound_ms=ob, bound_by=obb,
-            max_abs_err=float((ko != po).any()), ops=o_ops)
-        print(f"[kernels] {name}: closest {ck:.4f} ms (plain {cp:.2f} ms, "
-              f"bound {cb:.4f} ms by {cbb}); occluded {ok_:.4f} ms "
-              f"(plain {op:.2f} ms, bound {ob:.4f} ms by {obb})", flush=True)
+            max_abs_err=float((ko != wo).any()), ops=o_ops,
+            grays_per_s=n / ok_ / 1e6)
+        print(f"[kernels] {name}: closest {ck:.4f} ms = {n / ck / 1e6:.3f} "
+              f"Grays/s (plain {cp:.2f} ms, bound {cb:.4f} ms by {cbb}, "
+              f"{cb / ck:.1%} of it); occluded {ok_:.4f} ms = "
+              f"{n / ok_ / 1e6:.3f} Grays/s (plain {op:.2f} ms, bound "
+              f"{ob:.4f} ms by {obb}, {ob / ok_:.1%} of it)", flush=True)
     return out
 
 
@@ -227,11 +260,16 @@ def profile_pass(scene, view, cfg, state, dev):
             rows.append((us, e.key, e.count))
     rows.sort(reverse=True)
     total = sum(r[0] for r in rows)
+    kernels = ("closest_kernel", "occluded_kernel")
     share = {k: sum(r[0] for r in rows if k in r[1]) / max(total, 1e-9)
-             for k in ("closest_kernel", "occluded_kernel")}
+             for k in kernels}
+    per_launch = {k: sum(r[0] for r in rows if k in r[1]) / 1e3
+                  / max(sum(r[2] for r in rows if k in r[1]), 1)
+                  for k in kernels}
     res = dict(wall_ms=wall * 1e3, device_ms=total / 1e3,
                device_busy_share=total / 1e3 / (wall * 1e3),
                kernel_share_of_device=share,
+               kernel_ms_per_launch=per_launch,
                top=[dict(name=k[:60], ms=us / 1e3, calls=c)
                     for us, k, c in rows[:12]])
     print("[profile] " + json.dumps(res), flush=True)
@@ -275,6 +313,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     try:
+        from lighthouse2_tpu_torch.bvh.wide import pack_wide
         from lighthouse2_tpu_torch.core.types import RenderConfig
         from lighthouse2_tpu_torch.render.kernels.trace import build_library
         from lighthouse2_tpu_torch.scene.bench_scene import bathroom
@@ -306,12 +345,22 @@ def main() -> int:
     host, cam = bathroom(size, size)
     scene = host.sync(dev)
     view = cam.get_view(dev)
+    sync_s = time.perf_counter() - t0
+    b = scene.bvh
+    t0 = time.perf_counter()
+    pack_wide(*(x.cpu().numpy() for x in (b.nbox, b.left, b.right, b.count,
+                                          b.prim, b.tri9)), b.max_leaf)
+    collapse_s = time.perf_counter() - t0
     print(f"[scene] bathroom: {scene.tris.count} triangles, "
-          f"{scene.bvh.nbox.shape[1]} BVH nodes, depth {scene.bvh.depth}, "
+          f"{b.nbox.shape[1]} BVH2 nodes (depth {b.depth}) collapsed into "
+          f"{b.node4.shape[0]} BVH4 nodes (depth {b.depth4}; "
+          f"{b.node4.numel() * 4 / 1e6:.2f} MB of nodes, "
+          f"{b.tri4.numel() * 4 / 1e6:.2f} MB of triangles), "
           f"{scene.materials.count} materials; built and uploaded in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+          f"{sync_s:.1f} s, of which the BVH4 collapse and packing "
+          f"{collapse_s:.3f} s on the host", flush=True)
 
-    kern = check_kernels(scene, view, cfg, dev, KERNEL_ITERS)
+    kern = check_kernels(scene, view, cfg, dev, KERNEL_ITERS, PLAIN_ITERS)
     main_res, state = main_path(scene, view, cfg, dev, passes=3)
     print(f"[main] {main_res['mrays_per_s']:.3f} Mrays/s on {card} "
           f"(bathroom {size}x{size}, path {path_len}, regen)", flush=True)

@@ -1,15 +1,20 @@
-"""BVH2 traversal in plain PyTorch — the plain version of both trace kernels.
+"""BVH2 traversal in plain PyTorch: the BVH2 reference of the trace kernels.
 
 Counterpart of lighthouse2_tpu/bvh/traverse.py (DeviceBVH,
 device_bvh_from_flat, _traverse_chunk, bvh_intersect, bvh_occluded, and
 refine_hit forward only). All rays advance in lockstep: each step every live
 ray either tests the triangles of its leaf, descends into the nearer hit
-child (pushing the farther one), or pops its explicit stack. The CUDA kernels
-in csrc/trace.cu walk each ray through the same node sequence with the same
-arithmetic, so this is what they are held against.
+child (pushing the farther one), or pops its explicit stack.
+
+The CUDA kernels (csrc/trace.cu) do not walk this BVH2: they walk the BVH4
+that bvh/wide.py collapses from it, and bvh/wide.py's plain walk is what they
+are held against lane for lane. DeviceBVH carries both: the BVH2 arrays
+(which shading and refine_hit gather by triangle id) and the packed BVH4.
+bvh_intersect / bvh_occluded stay as the port's counterparts of the JAX
+lockstep and as the BVH2 reference the BVH4 walk is checked against.
 
 Deliberate differences from the JAX version:
-  - the stack holds STACK_CAP = 64 entries and a BVH deeper than
+  - the stack holds STACK_CAP = 64 entries and a BVH2 deeper than
     STACK_CAP - 2 raises ValueError (the JAX lockstep clips at 48);
   - lanes that finish are compacted out of the working set between
     convergence checks, so long-tailed batches cost what their live rays
@@ -25,9 +30,10 @@ import numpy as np
 import torch
 
 from lighthouse2_tpu_torch.bvh.builder import bvh_depth
+from lighthouse2_tpu_torch.bvh.wide import check_depth4, pack_wide
 from lighthouse2_tpu_torch.core.geometry import BIG_T, mt_comp
 
-STACK_CAP = 64            # per-ray stack entries (csrc/trace.cu STACK_CAP)
+STACK_CAP = 64            # per-ray stack entries of the BVH2 walk
 STEPS_PER_CHECK = 4       # traversal steps between convergence checks
 
 
@@ -39,26 +45,39 @@ class DeviceBVH:
     count: torch.Tensor   # [M] int32: 0 interior, >0 leaf prim count
     prim: torch.Tensor    # [T] int32 triangle ids, contiguous per leaf
     tri9: torch.Tensor    # [9,T] f32: v0.xyz, e1.xyz, e2.xyz
+    node4: torch.Tensor   # [M4,32] f32 BVH4 node records (bvh/wide.py)
+    tri4: torch.Tensor    # [T,12] f32 triangles in leaf order (bvh/wide.py)
     max_leaf: int = 4
-    depth: int = 0        # root-to-leaf edges, measured on the host at upload
+    depth: int = 0        # BVH2 root-to-leaf edges, measured at upload
+    depth4: int = 0       # BVH4 root-to-leaf edges, measured at upload
 
 
 def device_bvh_from_flat(flat: dict, v0, v1, v2, device,
                          max_leaf: int = 4) -> DeviceBVH:
-    """Upload a builder.py flat dict in the traversal layout."""
+    """Upload a builder.py flat dict in the traversal layout: the BVH2
+    arrays and the BVH4 collapsed and packed from them."""
     nbox = np.concatenate([flat["nmin"].T, flat["nmax"].T], 0).astype(np.float32)
     v0 = np.asarray(v0, np.float32)
     e1 = np.asarray(v1, np.float32) - v0
     e2 = np.asarray(v2, np.float32) - v0
     tri9 = np.concatenate([v0.T, e1.T, e2.T], 0).astype(np.float32)
+    wide = pack_wide(nbox, flat["left"], flat["right"], flat["count"],
+                     flat["prim"], tri9, max_leaf)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
     return DeviceBVH(nbox=t(nbox), left=t(flat["left"]), right=t(flat["right"]),
                      count=t(flat["count"]), prim=t(flat["prim"]), tri9=t(tri9),
-                     max_leaf=max_leaf, depth=bvh_depth(flat))
+                     node4=t(wide["node4"]), tri4=t(wide["tri4"]),
+                     max_leaf=max_leaf, depth=bvh_depth(flat),
+                     depth4=wide["depth4"])
 
 
 def check_depth(bvh: DeviceBVH) -> None:
-    """Raise if a traversal stack could overflow on this BVH."""
+    """Raise if the trace kernels' stack could overflow on this BVH's BVH4."""
+    check_depth4(bvh.depth4)
+
+
+def _check_depth2(bvh: DeviceBVH) -> None:
+    """Raise if the BVH2 walk's stack could overflow on this BVH."""
     if bvh.depth + 2 > STACK_CAP:
         raise ValueError(
             f"BVH depth {bvh.depth} needs more than the {STACK_CAP}-entry "
@@ -86,7 +105,7 @@ def _slab(ox, oy, oz, ix, iy, iz, nbox, nid, t_best):
 def _traverse(o, d, t_max, bvh: DeviceBVH, anyhit: bool):
     """Lockstep traversal of all rays. Returns the per-lane result arrays
     (best_t, best_p, best_u, best_v, occ, visits, boxes, tests)."""
-    check_depth(bvh)
+    _check_depth2(bvh)
     n = o.shape[0]
     dev = o.device
     n_tris = bvh.prim.shape[0]

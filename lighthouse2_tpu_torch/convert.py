@@ -6,12 +6,15 @@ package's DeviceScene and its DeviceBVH) or view (a ViewPyramid), and the
 values are numpy arrays, or ints for the static counts (lights.s_tri,
 materials.s_base_maps, bvh.max_leaf, ...). Unknown fields are ignored. The
 caller flattens its objects with np.asarray; no JAX type reaches the port.
-That lets both packages compute on the same BVH topology.
+That lets both packages compute on the same BVH topology. The port-only BVH
+fields (the BVH2 depth and the packed BVH4 of bvh/wide.py) are computed here
+from the BVH2 arrays.
 """
 from __future__ import annotations
 
 from lighthouse2_tpu_torch.bvh.builder import bvh_depth
 from lighthouse2_tpu_torch.bvh.traverse import DeviceBVH
+from lighthouse2_tpu_torch.bvh.wide import pack_wide
 from lighthouse2_tpu_torch.core.types import ViewPyramid
 from lighthouse2_tpu_torch.device import resolve_device
 from lighthouse2_tpu_torch.scene.device_scene import (
@@ -32,7 +35,10 @@ def scene_from_numpy(arrays: dict, device=None):
         group, _, field = key.partition(".")
         if group in parts:
             parts[group][field] = value
-    parts["bvh"]["depth"] = bvh_depth(parts["bvh"])
+    b = parts["bvh"]
+    b["depth"] = bvh_depth(b)
+    b.update(pack_wide(b["nbox"], b["left"], b["right"], b["count"],
+                       b["prim"], b["tri9"], b.get("max_leaf", 4)))
     objs = {g: to_device(cls, parts[g], dev) for g, cls in _GROUPS.items()
             if g != "view"}
     view = to_device(ViewPyramid, parts["view"], dev) if parts["view"] else None

@@ -2,9 +2,12 @@
 
 Counterpart of lighthouse2_tpu/render/kernels/trace.py, whose two Pallas
 kernels (_make_closest_kernel and _make_anyhit_kernel, launched by
-_trace_chunk and wrapped by trace_cluster_bvh) these replace. The CUDA
-source explains the design; the plain PyTorch version of both is
-bvh/traverse.py (bvh_intersect, bvh_occluded).
+_trace_chunk and wrapped by trace_cluster_bvh) these replace. Both kernels
+walk the BVH4 that bvh/wide.py packs at upload (DeviceBVH.node4, .tri4); the
+CUDA source explains the design. Their plain PyTorch version is bvh/wide.py
+(wide_intersect, wide_occluded), which walks the same BVH4 in the same order;
+bvh/traverse.py (bvh_intersect, bvh_occluded) is the BVH2 reference that both
+are checked against.
 
 The library is built with nvcc at first use from the checkout's sources into
 build/lighthouse2_tpu_torch/trace_<hash>.so (the hash covers the source and
@@ -23,8 +26,8 @@ import subprocess
 
 import torch
 
-from lighthouse2_tpu_torch.bvh.traverse import (
-    DeviceBVH, bvh_intersect, bvh_occluded, check_depth)
+from lighthouse2_tpu_torch.bvh.traverse import DeviceBVH, check_depth
+from lighthouse2_tpu_torch.bvh.wide import wide_intersect, wide_occluded
 
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
@@ -44,21 +47,26 @@ def _nvcc() -> str:
     return path
 
 
-def build_library() -> tuple[str, str]:
-    """Compile csrc/trace.cu unless this source and these flags were built
-    already. Returns (path of the .so, the compiler's log incl. -Xptxas -v)."""
-    with open(SOURCE, "rb") as fh:
-        src = fh.read()
+def build_library(source: str = SOURCE,
+                  deps: tuple = ()) -> tuple[str, str]:
+    """Compile `source` (csrc/trace.cu by default) unless this source, the
+    files it includes (`deps`) and these flags were built already. Returns
+    (path of the .so, the compiler's log incl. -Xptxas -v)."""
+    src = b""
+    for path in (source, *deps):
+        with open(path, "rb") as fh:
+            src += fh.read()
     key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    so = os.path.join(BUILD_DIR, f"trace_{key}.so")
+    stem = os.path.splitext(os.path.basename(source))[0]
+    so = os.path.join(BUILD_DIR, f"{stem}_{key}.so")
     log_path = so[:-3] + ".log"
     if not os.path.exists(so):
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{so}.{os.getpid()}.tmp"
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, source],
                               capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {SOURCE}:\n{proc.stderr}")
+            raise RuntimeError(f"nvcc failed on {source}:\n{proc.stderr}")
         with open(log_path, "w") as fh:
             fh.write(proc.stdout + proc.stderr)
         os.replace(tmp, so)
@@ -71,9 +79,9 @@ def _load():
     if _lib is None:
         lib = ctypes.CDLL(build_library()[0])
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.lh2_trace_closest.argtypes = [p] * 9 + [i] * 4 + [p] * 6
+        lib.lh2_trace_closest.argtypes = [p] * 5 + [i] * 2 + [p] * 6
         lib.lh2_trace_closest.restype = i
-        lib.lh2_trace_occluded.argtypes = [p] * 9 + [i] * 4 + [p] * 3
+        lib.lh2_trace_occluded.argtypes = [p] * 5 + [i] * 2 + [p] * 3
         lib.lh2_trace_occluded.restype = i
         _lib = lib
     return _lib
@@ -87,15 +95,14 @@ def _prepare(o, d, tmax, bvh: DeviceBVH):
     n = o.shape[0]
     tmax = torch.broadcast_to(torch.as_tensor(tmax, dtype=torch.float32,
                                               device=o.device), (n,))
-    tensors = dict(o=o, d=d, nbox=bvh.nbox, tri9=bvh.tri9)
+    tensors = dict(o=o, d=d, node4=bvh.node4, tri4=bvh.tri4)
     for name, t in tensors.items():
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
-    for name in ("left", "right", "count", "prim"):
-        if getattr(bvh, name).dtype != torch.int32:
-            raise TypeError(f"bvh.{name} must be int32")
-    for name, t in dict(tensors, tmax=tmax, left=bvh.left, right=bvh.right,
-                        count=bvh.count, prim=bvh.prim).items():
+    if bvh.node4.dim() != 2 or bvh.node4.shape[1] != 32 \
+            or bvh.tri4.dim() != 2 or bvh.tri4.shape[1] != 12:
+        raise ValueError("bvh.node4 must be [M4, 32] and bvh.tri4 [T, 12]")
+    for name, t in dict(tensors, tmax=tmax).items():
         if t.device != o.device:
             raise ValueError(f"{name} is on {t.device}, rays on {o.device}")
     check_depth(bvh)
@@ -103,15 +110,14 @@ def _prepare(o, d, tmax, bvh: DeviceBVH):
 
 
 def _ptrs(o, d, tmax, bvh: DeviceBVH):
-    for name, t in dict(o=o, d=d, nbox=bvh.nbox, left=bvh.left,
-                        right=bvh.right, count=bvh.count, prim=bvh.prim,
-                        tri9=bvh.tri9).items():
+    for name, t in dict(o=o, d=d, node4=bvh.node4, tri4=bvh.tri4).items():
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    return [o.data_ptr(), d.data_ptr(), tmax.data_ptr(), bvh.nbox.data_ptr(),
-            bvh.left.data_ptr(), bvh.right.data_ptr(), bvh.count.data_ptr(),
-            bvh.prim.data_ptr(), bvh.tri9.data_ptr(), bvh.nbox.shape[1],
-            bvh.prim.shape[0], bvh.max_leaf, o.shape[0]]
+    for name, t in dict(node4=bvh.node4, tri4=bvh.tri4).items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (float4 loads)")
+    return [o.data_ptr(), d.data_ptr(), tmax.data_ptr(), bvh.node4.data_ptr(),
+            bvh.tri4.data_ptr(), bvh.max_leaf, o.shape[0]]
 
 
 def _check_rc(rc: int, name: str):
@@ -124,11 +130,12 @@ def trace_closest(o, d, tmax, bvh: DeviceBVH, stats: bool = False):
 
     Returns (t f32 [N], prim int32 [N] (-1 on a miss, then t = tmax),
     u, v f32 [N]); with stats=True also int32 [3, N] per-ray counts of
-    steps, box-pair tests and triangle tests. tmax is a scalar or [N];
+    steps, child-box tests and triangle tests over the BVH4. tmax is a
+    scalar or [N];
     tmax <= 0 is a dead lane."""
     tmax = _prepare(o, d, tmax, bvh)
     if o.device.type == "cpu":
-        return bvh_intersect(o, d, bvh, t_max=tmax, stats=stats)
+        return wide_intersect(o, d, bvh, t_max=tmax, stats=stats)
     if o.device.type != "cuda":
         raise ValueError(f"unsupported device {o.device}")
     n = o.shape[0]
@@ -153,7 +160,7 @@ def trace_occluded(o, d, tmax, bvh: DeviceBVH, stats: bool = False):
     with stats=True)."""
     tmax = _prepare(o, d, tmax, bvh)
     if o.device.type == "cpu":
-        return bvh_occluded(o, d, tmax, bvh, stats=stats)
+        return wide_occluded(o, d, tmax, bvh, stats=stats)
     if o.device.type != "cuda":
         raise ValueError(f"unsupported device {o.device}")
     n = o.shape[0]

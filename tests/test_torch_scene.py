@@ -24,6 +24,8 @@ from lighthouse2_tpu_torch.scene import presets as tpresets
 torch.set_num_threads(1)
 
 GROUPS = ("tris", "materials", "lights", "sky", "textures", "bvh")
+# port-only BVH fields: the measured depths and the packed BVH4 (bvh/wide.py)
+PORT_ONLY = {"depth", "depth4", "node4", "tri4"}
 
 
 def jax_scene_arrays(ds, view=None) -> dict:
@@ -56,7 +58,7 @@ def assert_scene_equal(port_scene, arrays):
         for f in dataclasses.fields(obj):
             key = f"{g}.{f.name}"
             if key not in arrays:
-                assert f.name == "depth", key     # port-only: measured depth
+                assert f.name in PORT_ONLY, key
                 continue
             got, want = getattr(obj, f.name), arrays[key]
             if isinstance(got, torch.Tensor):

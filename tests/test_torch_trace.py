@@ -1,10 +1,11 @@
 """The trace kernels' plain versions against the JAX package's trace paths.
 
 lighthouse2_tpu_torch/render/kernels/trace.py launches csrc/trace.cu for CUDA
-tensors and runs the plain PyTorch version (bvh/traverse.py) for CPU
-tensors, which is what runs here; chip_smoke.py holds the CUDA kernels
-against the plain version on the card. Here the plain version is held
-against
+tensors and runs the plain PyTorch version (the BVH4 walk of bvh/wide.py)
+for CPU tensors, which is what runs here; chip_smoke.py holds the CUDA
+kernels against the plain version on the card. Here the wrappers (and the
+port's BVH2 walk, bvh/traverse.py, where the JAX lockstep's per-ray visits
+are compared) are held against
   - the JAX Pallas kernels in interpret mode (trace_cluster_bvh), as
     tests/test_cluster_kernel.py runs them: prim equal, t within rtol 2e-4
     (the Pallas kernel computes t from MXU plane forms, not Moller-Trumbore);
@@ -22,7 +23,9 @@ from lighthouse2_tpu.bvh.traverse import (
     bvh_intersect_counts, bvh_occluded, device_bvh_from_flat as jdevice_bvh)
 from lighthouse2_tpu.render.kernels.trace import trace_cluster_bvh
 from lighthouse2_tpu_torch.bvh.builder import build_sah_bvh_numpy
-from lighthouse2_tpu_torch.bvh.traverse import STACK_CAP, device_bvh_from_flat
+from lighthouse2_tpu_torch.bvh.traverse import (
+    STACK_CAP, bvh_intersect, device_bvh_from_flat)
+from lighthouse2_tpu_torch.bvh.wide import STACK_CAP as STACK4_CAP
 from lighthouse2_tpu_torch.core.geometry import BIG_T
 from lighthouse2_tpu_torch.render.kernels.trace import (
     trace_closest, trace_occluded)
@@ -97,7 +100,12 @@ def test_matches_jax_lockstep(setup):
                                    torch.from_numpy(tmax), setup["bvh"],
                                    stats=True)
     np.testing.assert_array_equal(p.numpy(), np.asarray(jp))
-    np.testing.assert_array_equal(st[0].numpy(), np.asarray(jvis))
+    # the wrapper counts BVH4 steps; the JAX visits are BVH2 steps
+    *_, st2 = bvh_intersect(torch.from_numpy(o), torch.from_numpy(d),
+                            setup["bvh"], t_max=torch.from_numpy(tmax),
+                            stats=True)
+    np.testing.assert_array_equal(st2[0].numpy(), np.asarray(jvis))
+    assert st[0].float().mean() < st2[0].float().mean()
     np.testing.assert_allclose(t.numpy(), np.asarray(jt), rtol=1e-6)
     # XLA's CPU backend contracts multiply-adds into FMAs and torch does
     # not; 1/det amplifies that last-bit difference on grazing hits
@@ -143,15 +151,25 @@ def _comb_bvh(depth):
 
 
 def test_stack_capacity_is_checked(setup):
-    ok = _comb_bvh(STACK_CAP - 2)
-    assert ok.depth == STACK_CAP - 2
+    """The wrappers check the BVH4's depth (3 * depth4 + 1 <= 64, a comb of
+    BVH2 depth 2k collapses to BVH4 depth k); the BVH2 walk its own."""
     o, d = (torch.from_numpy(a[:64]) for a in (setup["o"], setup["d"]))
+    limit4 = (STACK4_CAP - 1) // 3
+    ok = _comb_bvh(2 * limit4)
+    assert ok.depth4 == limit4
     trace_closest(o, d, BIG_T, ok)
-    deep = _comb_bvh(STACK_CAP - 1)
+    trace_occluded(o, d, BIG_T, ok)
+    deep = _comb_bvh(2 * limit4 + 2)
+    assert deep.depth4 == limit4 + 1
     with pytest.raises(ValueError, match="depth"):
         trace_closest(o, d, BIG_T, deep)
     with pytest.raises(ValueError, match="depth"):
         trace_occluded(o, d, BIG_T, deep)
+    ok2 = _comb_bvh(STACK_CAP - 2)
+    assert ok2.depth == STACK_CAP - 2
+    bvh_intersect(o, d, ok2)
+    with pytest.raises(ValueError, match="depth"):
+        bvh_intersect(o, d, _comb_bvh(STACK_CAP - 1))
 
 
 def test_non_cpu_tensors_never_take_the_plain_path(setup):
@@ -168,7 +186,9 @@ def test_non_cpu_tensors_never_take_the_plain_path(setup):
     b = setup["bvh"]
     mbvh = tv.DeviceBVH(nbox=meta(b.nbox), left=meta(b.left),
                         right=meta(b.right), count=meta(b.count),
-                        prim=meta(b.prim), tri9=meta(b.tri9), depth=b.depth)
+                        prim=meta(b.prim), tri9=meta(b.tri9),
+                        node4=meta(b.node4), tri4=meta(b.tri4), depth=b.depth,
+                        depth4=b.depth4)
     o = torch.zeros((8, 3), device="meta")
     before = tk.trace_closest.launches
     with pytest.raises(ValueError, match="unsupported device"):
