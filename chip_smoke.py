@@ -22,7 +22,20 @@ Phases; any failure exits non-zero before the result line is printed:
      shadow rays), per-bounce ray counts, peak memory, the image; each
      kernel must launch exactly 16 times a pass; then one profiled pass;
   4. a 64x64 Cornell box rendered on the card and on the CPU (plain
-     versions), compared per pixel.
+     versions), compared per pixel;
+  5. [train] the fwd+bwd headline (bench.py:291-297): bathroom 512x512,
+     path 16, regen, remat, through diff.render.regen_value_and_grad with
+     material colours [12,3], area-light radiance [LT,3] and per-vertex
+     offsets [129252,3,3] (zeros) as parameters and a zero target;
+     1 warm-up and 2 timed steps; fwd+bwd Mrays/s (rays of one forward
+     stats pass, bench.py:129-134), ms per step, peak memory, kernel
+     launches per step (each kernel must launch 16 times a step: both
+     traces stay outside the recomputed region), each gradient group's
+     norm (all finite, each group nonzero); one step without remat for its
+     peak memory; one profiled step (device ms, busy share, top device
+     ops); then a 64x64 Cornell box, path 4, regen, fwd+bwd on the card and
+     on the CPU, gradients compared per group by relative L2 error
+     (GRAD_RTOL, the bounds of tests/test_torch_grad.py).
 It then prints one JSON line of per-kernel numbers, the card's name and
 power limit, and last the result line {"ok": true, "device": {...}}.
 """
@@ -46,6 +59,9 @@ FP32_OPS_PER_S = 67e12
 # layouts
 SLAB_PAIR_OPS = 50
 MT_OPS = 54
+TRAIN_STEPS = 2            # timed fwd+bwd steps (bench.py:296)
+# card-vs-CPU gradient bounds, relative L2 per group (tests/test_torch_grad.py)
+GRAD_RTOL = dict(color=1e-3, light=1e-3, offset=2e-2)
 
 
 def _sh(cmd):
@@ -240,16 +256,15 @@ def main_path(scene, view, cfg, dev, passes):
     return res, state
 
 
-def profile_pass(scene, view, cfg, state, dev):
-    """One more pass under torch.profiler: device time by kernel name."""
+def _profile(fn, dev, tag):
+    """Run fn once under torch.profiler: device time by kernel name."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from lighthouse2_tpu_torch.render.wavefront import render_pass
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        render_pass(scene, view, state, cfg)
+        fn()
         torch.cuda.synchronize(dev)
         wall = time.perf_counter() - t0
     rows = []      # device-side events only (kernels, copies, memsets)
@@ -272,8 +287,15 @@ def profile_pass(scene, view, cfg, state, dev):
                kernel_ms_per_launch=per_launch,
                top=[dict(name=k[:60], ms=us / 1e3, calls=c)
                     for us, k, c in rows[:12]])
-    print("[profile] " + json.dumps(res), flush=True)
+    print(tag + json.dumps(res), flush=True)
     return res
+
+
+def profile_pass(scene, view, cfg, state, dev):
+    """One more forward pass under torch.profiler."""
+    from lighthouse2_tpu_torch.render.wavefront import render_pass
+    return _profile(lambda: render_pass(scene, view, state, cfg), dev,
+                    "[profile] ")
 
 
 def reference_check(dev):
@@ -304,6 +326,138 @@ def reference_check(dev):
     print("[reference] " + json.dumps(res), flush=True)
     if res["pixels_close"] < 0.99 or res["mean_rel_diff"] > 1e-3:
         raise AssertionError("card and CPU renders disagree")
+    return res
+
+
+def _headline_params(scene, size, dev):
+    """bench.py:114-118: colours, light radiance, zero vertex offsets; a
+    zero target image."""
+    import torch
+    params = dict(color=scene.materials.color,
+                  light=scene.lights.tri_radiance,
+                  offset=torch.zeros((scene.tris.count, 3, 3), device=dev))
+    return params, torch.zeros((size * size, 3), device=dev)
+
+
+def _grad_summary(grads):
+    import torch
+    return {k: dict(norm=g.norm().item(), finite=bool(torch.isfinite(g).all()),
+                    nonzero=int((g != 0).sum())) for k, g in grads.items()}
+
+
+def train_path(scene, view, cfg, dev, steps):
+    """Phase 5: the fwd+bwd headline. Returns its numbers and the state."""
+    import dataclasses
+    import torch
+    from lighthouse2_tpu_torch.diff.render import regen_value_and_grad
+    from lighthouse2_tpu_torch.render.kernels.trace import (
+        trace_closest, trace_occluded)
+    from lighthouse2_tpu_torch.render.wavefront import (
+        AccumState, ensure_regen_state, render_pass)
+
+    cfg = dataclasses.replace(cfg, remat=True)
+    size = cfg.width
+    params, target = _headline_params(scene, size, dev)
+    # ray count from one forward stats pass (bench.py:129-134)
+    _, stats0 = render_pass(scene, view, AccumState.make(cfg, dev), cfg)
+    fixed_rays = int(stats0["total_extension"]) + int(stats0["total_shadow"])
+    state = ensure_regen_state(view, AccumState.make(cfg, dev), cfg)
+    t0 = time.perf_counter()
+    loss, grads, state = regen_value_and_grad(scene, view, state, cfg,
+                                              target, params)    # warm-up
+    torch.cuda.synchronize(dev)
+    warm_s = time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    trace_closest.launches = 0
+    trace_occluded.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        loss, grads, state = regen_value_and_grad(scene, view, state, cfg,
+                                                  target, params)
+    torch.cuda.synchronize(dev)
+    dt = time.perf_counter() - t0
+    launches = dict(trace_closest=trace_closest.launches,
+                    trace_occluded=trace_occluded.launches)
+    peak = torch.cuda.max_memory_allocated(dev)
+    summary = _grad_summary(grads)
+    res = dict(steps=steps, seconds=dt, warmup_seconds=warm_s,
+               rays_per_step=fixed_rays,
+               mrays_per_s=fixed_rays * steps / dt / 1e6,
+               ms_per_step=dt * 1e3 / steps, loss=loss.item(),
+               launches=launches,
+               launches_per_step={k: v / steps for k, v in launches.items()},
+               max_memory_allocated=peak, grads=summary)
+    print("[train] " + json.dumps(res), flush=True)
+
+    # one step without remat, for its peak memory
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    regen_value_and_grad(scene, view, state,
+                         dataclasses.replace(cfg, remat=False), target,
+                         params)
+    torch.cuda.synchronize(dev)
+    res["no_remat"] = dict(ms=(time.perf_counter() - t0) * 1e3,
+                           max_memory_allocated=torch.cuda.max_memory_allocated(
+                               dev))
+    print("[train] no remat: " + json.dumps(res["no_remat"]), flush=True)
+    print(f"[train] {res['mrays_per_s']:.3f} Mrays/s fwd+bwd, "
+          f"{res['ms_per_step']:.1f} ms/step, peak {peak / 1e9:.2f} GB with "
+          f"remat, {res['no_remat']['max_memory_allocated'] / 1e9:.2f} GB "
+          f"without", flush=True)
+
+    want = cfg.max_path_length * steps
+    if launches != dict(trace_closest=want, trace_occluded=want):
+        raise AssertionError(f"each kernel must launch {cfg.max_path_length} "
+                             f"times a fwd+bwd step, got {launches} over "
+                             f"{steps} steps")
+    bad = {k: v for k, v in summary.items()
+           if not (v["finite"] and v["nonzero"] > 0)}
+    if bad:
+        raise AssertionError(f"gradients not finite or all zero: {bad}")
+    return res, state
+
+
+def profile_train_step(scene, view, cfg, state, dev):
+    """One fwd+bwd step under torch.profiler: device time by kernel name."""
+    import dataclasses
+    from lighthouse2_tpu_torch.diff.render import regen_value_and_grad
+
+    cfg = dataclasses.replace(cfg, remat=True)
+    params, target = _headline_params(scene, cfg.width, dev)
+    return _profile(lambda: regen_value_and_grad(scene, view, state, cfg,
+                                                 target, params),
+                    dev, "[train profile] ")
+
+
+def grad_reference_check(dev):
+    """Phase 5, last: fwd+bwd of a small regen render on the card against
+    the same step through the plain versions on the CPU."""
+    import torch
+    from lighthouse2_tpu_torch.core.types import RenderConfig
+    from lighthouse2_tpu_torch.diff.render import regen_value_and_grad
+    from lighthouse2_tpu_torch.render.wavefront import AccumState
+    from lighthouse2_tpu_torch.scene.presets import cornell_box
+
+    cfg = RenderConfig(width=64, height=64, spp_per_pass=1, max_path_length=4,
+                       path_regen=True, remat=True)
+    scene, cam = cornell_box(64, 64)
+    out = {}
+    for where in (dev, torch.device("cpu")):
+        ds, view = scene.sync(where), cam.get_view(where)
+        params, target = _headline_params(ds, 64, where)
+        loss, grads, _ = regen_value_and_grad(
+            ds, view, AccumState.make(cfg, where), cfg, target + 0.25, params)
+        out[where.type] = (loss.item(), {k: g.cpu() for k, g in grads.items()})
+    (gl, gg), (cl, cg) = out[dev.type], out["cpu"]
+    err = {k: ((gg[k] - cg[k]).norm() / cg[k].norm()).item() for k in cg}
+    res = dict(loss_card=gl, loss_cpu=cl,
+               loss_rel_diff=abs(gl - cl) / max(abs(cl), 1e-30),
+               grad_rel_l2=err, bounds=GRAD_RTOL)
+    print("[train reference] " + json.dumps(res), flush=True)
+    if res["loss_rel_diff"] > 1e-4 or any(err[k] > b
+                                          for k, b in GRAD_RTOL.items()):
+        raise AssertionError("card and CPU gradients disagree")
     return res
 
 
@@ -366,6 +520,9 @@ def main() -> int:
           f"(bathroom {size}x{size}, path {path_len}, regen)", flush=True)
     profile_pass(scene, view, cfg, state, dev)
     reference_check(dev)
+    train_res, train_state = train_path(scene, view, cfg, dev, TRAIN_STEPS)
+    profile_train_step(scene, view, cfg, train_state, dev)
+    grad_reference_check(dev)
 
     rows = []
     for name, batch, line in (("trace_closest", "bounce1", 229),
@@ -374,7 +531,9 @@ def main() -> int:
         rows.append(dict(
             name=name, route="cuda", source="lighthouse2_tpu_torch/csrc/trace.cu",
             replaces=f"lighthouse2_tpu/render/kernels/trace.py:{line}",
-            launches=main_res["launches"][name], max_abs_err=k["max_abs_err"],
+            launches=main_res["launches"][name],
+            launches_fwd_bwd_per_step=train_res["launches_per_step"][name],
+            max_abs_err=k["max_abs_err"],
             ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
             bound_by=k["bound_by"], library_ms=None))
     print(json.dumps({"kernels": rows}))

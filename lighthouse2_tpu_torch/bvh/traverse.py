@@ -1,10 +1,13 @@
 """BVH2 traversal in plain PyTorch: the BVH2 reference of the trace kernels.
 
 Counterpart of lighthouse2_tpu/bvh/traverse.py (DeviceBVH,
-device_bvh_from_flat, _traverse_chunk, bvh_intersect, bvh_occluded, and
-refine_hit forward only). All rays advance in lockstep: each step every live
-ray either tests the triangles of its leaf, descends into the nearer hit
-child (pushing the farther one), or pops its explicit stack.
+device_bvh_from_flat, _traverse_chunk, bvh_intersect, bvh_occluded,
+refine_hit, refine_hit_rows and the clipped _refine_tuv backward). All
+rays advance in lockstep: each step every live ray either tests the
+triangles of its leaf, descends into the nearer hit child (pushing the
+farther one), or pops its explicit stack. The trace wrappers detach their
+rays, as the JAX package stop_gradients its traversal; refine_hit is where
+gradients reach the hit.
 
 The CUDA kernels (csrc/trace.cu) do not walk this BVH2: they walk the BVH4
 that bvh/wide.py collapses from it, and bvh/wide.py's plain walk is what they
@@ -20,7 +23,11 @@ Deliberate differences from the JAX version:
     convergence checks, so long-tailed batches cost what their live rays
     need (results are per lane and do not change);
   - optional per-ray int32 [3, N] counts: steps (node visits), interior
-    nodes whose child boxes were tested, and triangle tests.
+    nodes whose child boxes were tested, and triangle tests;
+  - the clipped refine backward is a torch.autograd.Function (_RefineTUV)
+    in place of jax.custom_vjp, with the same clip (REFINE_GRAD_LIMIT); its
+    forward also returns the hit mask, computed without autograd, where
+    JAX runs the re-test a second time on stop_gradient inputs.
 """
 from __future__ import annotations
 
@@ -252,14 +259,63 @@ def bvh_occluded(o, d, t_max, bvh: DeviceBVH, stats: bool = False):
 
 
 def refine_hit(o, d, prim, tri9):
-    """Recompute (t, u, v) for a known hit primitive (forward only; the
-    clipped backward comes with the training slice). Returns
-    (t, u, v, ok); ok is False where the re-test loses the hit."""
+    """Differentiably recompute (t, u, v) for a known hit primitive.
+    Gradients flow to the ray and to the triangle data: the reparameterised
+    hit that stands in for differentiating the discrete traversal. The rows
+    of the hit triangles are gathered first, so the clipped backward of
+    refine_hit_rows acts on each lane before the gather's backward sums the
+    lanes into their triangle. Returns (t, u, v, ok); ok is False where the
+    re-test loses the hit."""
     p = torch.clamp(prim, min=0)
-    g9 = tri9[:, p]
-    t, u, v, h = mt_comp(o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2],
-                         g9[0], g9[1], g9[2], g9[3], g9[4], g9[5], g9[6],
-                         g9[7], g9[8], -BIG_T, BIG_T, det_eps=1e-6)
+    return refine_hit_rows(o, d, prim, tri9[:, p])
+
+
+# bound on the refine cotangents: the reparameterised-hit derivative carries
+# 1/det and 1/det^2 factors that are real but unbounded at grazing incidence;
+# unclipped they compound across bounces and overflow float32
+REFINE_GRAD_LIMIT = 1e4
+
+
+def _refine_tuv_impl(o, d, g9):
+    """The refine re-test: (t, u, v, hit) of each lane's own triangle."""
+    return mt_comp(o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2],
+                   g9[0], g9[1], g9[2], g9[3], g9[4], g9[5], g9[6], g9[7],
+                   g9[8], -BIG_T, BIG_T, det_eps=1e-6)
+
+
+def _clip_grad(g):
+    return torch.clamp(torch.nan_to_num(g, nan=0.0, posinf=0.0, neginf=0.0),
+                       -REFINE_GRAD_LIMIT, REFINE_GRAD_LIMIT)
+
+
+class _RefineTUV(torch.autograd.Function):
+    """(t, u, v, hit) of the refine re-test. The backward is the VJP of
+    (t, u, v) with NaN/inf zeroed and each lane's gradient clipped to
+    +-REFINE_GRAD_LIMIT (JAX _refine_tuv's custom_vjp); hit is a bool and
+    takes no gradient (JAX computes it apart, on stop_gradient inputs)."""
+
+    @staticmethod
+    def forward(ctx, o, d, g9):
+        ctx.save_for_backward(o, d, g9)
+        t, u, v, hit = _refine_tuv_impl(o, d, g9)
+        ctx.mark_non_differentiable(hit)
+        return t, u, v, hit
+
+    @staticmethod
+    def backward(ctx, gt, gu, gv, _):
+        with torch.enable_grad():
+            ins = [x.detach().requires_grad_() for x in ctx.saved_tensors]
+            grads = torch.autograd.grad(_refine_tuv_impl(*ins)[:3], ins,
+                                        (gt, gu, gv))
+        return tuple(_clip_grad(g) for g in grads)
+
+
+def refine_hit_rows(o, d, prim, g9):
+    """refine_hit from per-ray triangle rows g9 [9, N] (v0, e1, e2
+    component-major). Uses a raised determinant cutoff (1e-6) and the
+    clipped backward of _RefineTUV. Returns (t, u, v, ok); callers keep the
+    traversal's (t, u, v) where ok is False (edge and grazing re-tests)."""
+    t, u, v, h = _RefineTUV.apply(o, d, g9)
     valid = prim >= 0
     return (torch.where(valid, t, BIG_T), torch.where(valid, u, 0.0),
             torch.where(valid, v, 0.0), valid & h)

@@ -16,9 +16,10 @@ import torch
 class RenderConfig:
     """Static render configuration (field meanings as in the JAX package).
 
-    The port implements the path-regeneration executor with the Lambert
-    BSDF; render entry points reject the options it does not implement yet
-    (disney, filter, sky_ibl, the classic executor)."""
+    The port implements the classic and the path-regeneration executors
+    (with remat) and the Lambert BSDF; render entry points reject the
+    options it does not implement yet (disney, filter, sky_ibl, scene
+    sharding, an intersector other than "auto")."""
     width: int = 512
     height: int = 512
     spp_per_pass: int = 1

@@ -88,7 +88,11 @@ def _load():
 
 
 def _prepare(o, d, tmax, bvh: DeviceBVH):
-    """Check the ray and BVH tensors; return tmax as a contiguous [N] f32."""
+    """Check the ray and BVH tensors; return (o, d, tmax) detached, tmax as
+    a contiguous [N] f32. Traversal is discrete and takes no gradient on
+    either route (the JAX package stop_gradients its traversal too), so a
+    plain walk on the CPU never builds an autograd graph."""
+    o, d = o.detach(), d.detach()
     if o.dim() != 2 or o.shape[1] != 3 or d.shape != o.shape:
         raise ValueError(f"o and d must both be [N,3], got {tuple(o.shape)} "
                          f"and {tuple(d.shape)}")
@@ -106,7 +110,7 @@ def _prepare(o, d, tmax, bvh: DeviceBVH):
         if t.device != o.device:
             raise ValueError(f"{name} is on {t.device}, rays on {o.device}")
     check_depth(bvh)
-    return tmax.contiguous()
+    return o, d, tmax.detach().contiguous()
 
 
 def _ptrs(o, d, tmax, bvh: DeviceBVH):
@@ -133,7 +137,7 @@ def trace_closest(o, d, tmax, bvh: DeviceBVH, stats: bool = False):
     steps, child-box tests and triangle tests over the BVH4. tmax is a
     scalar or [N];
     tmax <= 0 is a dead lane."""
-    tmax = _prepare(o, d, tmax, bvh)
+    o, d, tmax = _prepare(o, d, tmax, bvh)
     if o.device.type == "cpu":
         return wide_intersect(o, d, bvh, t_max=tmax, stats=stats)
     if o.device.type != "cuda":
@@ -158,7 +162,7 @@ def trace_occluded(o, d, tmax, bvh: DeviceBVH, stats: bool = False):
     """Any-hit: True where some triangle has 1e-6 < t < tmax. Dead lanes
     (tmax <= 0) report False. Returns bool [N] (and the int32 [3, N] counts
     with stats=True)."""
-    tmax = _prepare(o, d, tmax, bvh)
+    o, d, tmax = _prepare(o, d, tmax, bvh)
     if o.device.type == "cpu":
         return wide_occluded(o, d, tmax, bvh, stats=stats)
     if o.device.type != "cuda":

@@ -1,22 +1,43 @@
-"""The wavefront path tracer with path regeneration, in PyTorch.
+"""The wavefront path tracer, in PyTorch: the classic fixed-spp executor and
+the path-regeneration executor, both differentiable.
 
 Counterpart of lighthouse2_tpu/render/wavefront.py: AccumState, finalize,
 _clamp_intensity, _fixnan, _masked_div, _tiled_pixel, untile_image,
 generate_eye_rays, _intersect / _occluded (their BVH branches), bounce_step,
-shade_bounce, apply_shadow, make_regen_pool, trace_paths_regen,
-ensure_regen_state and the regen render pass. One pass runs
-max_path_length bounce iterations over a persistent pool of W*H*spp lanes;
-each iteration restarts every dead lane on a fresh sample of its own pixel,
-then traces (trace_closest), shades with NEE, traces the shadow batch
-(trace_occluded) and accumulates. Every lane carries its own path depth.
+shade_bounce, apply_shadow, trace_paths (the classic executor; also the
+single-pass semantics of trace_paths_unrolled), make_regen_pool,
+trace_paths_regen, ensure_regen_state and render_pass_auto as render_pass.
+
+Each bounce traces (trace_closest), refines the hit and shades with NEE,
+traces the shadow batch (trace_occluded) and accumulates. The classic
+executor runs max_path_length bounces over a fresh wavefront of W*H*spp
+lanes; the regen executor runs them over a persistent pool whose dead lanes
+restart on a fresh sample of their pixel at every bounce, each lane at its
+own path depth.
+
+Gradients flow to whatever scene tensors require them (diff/params.py):
+traversal is discrete and takes none, refine_hit reparameterises the hit.
+Accumulation is functional (acc = acc + ...), as the JAX package's
+.at[].add, so a bounce can be recomputed. With config.remat each bounce's
+refine + shade runs under torch.utils.checkpoint (non-reentrant) and is
+recomputed in the backward; the counter-based RNG replays the same samples.
+Both trace launches stay outside the recomputed region and the backward
+launches no kernel: their outputs ((t, prim, u, v) and occ, each [N]) are
+small and saved.
 
 Differences from the JAX package:
-  - a Python bounce loop instead of jit / lax.scan / lax.cond. bounce_step
-    has no all-lanes-dead branch: after regeneration every lane is alive,
-    so each iteration launches each trace kernel exactly once;
-  - the per-lane accumulator is updated in place within a pass;
-  - the classic fixed-spp executor, the filter G-buffers, Disney and sky
-    IBL are not ported yet; render_pass rejects configs that ask for them.
+  - a Python bounce loop instead of jit / lax.scan / lax.cond; remat
+    recomputes refine + shade only, where jax.checkpoint wraps the whole
+    bounce including traversal;
+  - the classic executor's all-lanes-dead branch costs one host readback
+    per bounce (the `any` of the alive mask); the regen executor has none:
+    after regeneration every lane is alive, so each of its bounces launches
+    each trace kernel exactly once;
+  - masks are bool tensors, which carry no gradient, so the stop_gradient
+    JAX puts on the dead mask and the completed-sample count has no
+    counterpart;
+  - the filter G-buffers, Disney, sky IBL and path_idx shards (the parallel
+    layer) are not ported yet; render_pass rejects configs that ask for them.
 """
 from __future__ import annotations
 
@@ -24,6 +45,7 @@ import dataclasses
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from lighthouse2_tpu_torch.bvh.traverse import refine_hit
 from lighthouse2_tpu_torch.core import bluenoise as bn
@@ -194,35 +216,60 @@ def generate_eye_rays(view: ViewPyramid, config: RenderConfig, sample_base,
     )
 
 
-def _intersect(scene: DeviceScene, o, d, alive):
-    """Closest hit through the trace kernel (dead lanes get tmax = 0), then
-    (t, u, v) recomputed from the winning triangle; lanes whose re-test
-    loses the hit keep the traversal values."""
-    t_max = torch.where(alive, BIG_T, 0.0)
-    t, prim, u, v = trace_closest(o, d, t_max, scene.bvh)
+def _trace(scene: DeviceScene, o, d, alive):
+    """Closest hit through the trace kernel; dead lanes get tmax = 0."""
+    return trace_closest(o, d, torch.where(alive, BIG_T, 0.0), scene.bvh)
+
+
+def _refine(scene: DeviceScene, o, d, t, prim, u, v):
+    """(t, u, v) recomputed differentiably from the winning triangle; lanes
+    whose re-test loses the hit keep the traversal values."""
     rt, ru, rv, ok = refine_hit(o, d, prim, scene.tris.tri9)
     keep = (prim >= 0) & ok
     return (torch.where(keep, rt, t), prim, torch.where(keep, ru, u),
             torch.where(keep, rv, v))
 
 
+def _intersect(scene: DeviceScene, o, d, alive):
+    """Closest hit, then the differentiable refine: (t, prim, u, v)."""
+    return _refine(scene, o, d, *_trace(scene, o, d, alive))
+
+
+def _shade_stage(scene, view, config, paths, acc, cam_seed, li, hit):
+    """refine + shade: the part of a bounce that remat recomputes."""
+    t, prim, u, v = _refine(scene, paths["origin"], paths["dir"], *hit)
+    return shade_bounce(scene, view, config, paths, acc, cam_seed, li,
+                        t, prim, u, v)
+
+
 def bounce_step(scene, view, config: RenderConfig, paths, acc, cam_seed, li):
-    """One full bounce: trace, shade, occlude, apply. Returns
-    (paths, acc, cam_seed, n_shadow_connections)."""
-    t, prim, u, v = _intersect(scene, paths["origin"], paths["dir"],
-                               paths["alive"])
-    paths, acc, cam_seed, shadow = shade_bounce(
-        scene, view, config, paths, acc, cam_seed, li, t, prim, u, v)
+    """One full bounce: trace, refine + shade (checkpointed with
+    config.remat), occlude, apply. Returns (paths, acc, cam_seed,
+    n_shadow_connections)."""
+    hit = _trace(scene, paths["origin"], paths["dir"], paths["alive"])
+    args = (scene, view, config, paths, acc, cam_seed, li, hit)
+    if config.remat:
+        paths, acc, cam_seed, shadow = checkpoint(_shade_stage, *args,
+                                                  use_reentrant=False)
+    else:
+        paths, acc, cam_seed, shadow = _shade_stage(*args)
     occ = trace_occluded(shadow["o"], shadow["d"], shadow["tmax"], scene.bvh)
     acc = apply_shadow(acc, shadow, occ)
     return paths, acc, cam_seed, shadow["conn_ok"].sum()
 
 
+def _add_rgb(acc, contrib, mask):
+    """acc[:, :3] += where(mask, contrib, 0), functionally."""
+    return acc + torch.nn.functional.pad(
+        torch.where(mask[:, None], contrib, 0.0), (0, 1))
+
+
 def shade_bounce(scene, view, config: RenderConfig, paths, acc, cam_seed, li,
                  t, prim, u, v):
     """The shade stage for one bounce (pathtracer.h:54-240 without the trace
-    launches). `li` is the per-lane path depth (0 = primary). Updates `acc`
-    in place; returns (paths', acc, cam_seed', shadow)."""
+    launches). `li` is the path depth (0 = primary): an int in the classic
+    executor, a per-lane tensor in the regen one. Returns (paths', acc',
+    cam_seed', shadow)."""
     geo_eps = config.geometry_epsilon
     path_length = li + 1                       # reference is 1-based
     is_primary = li == 0
@@ -236,10 +283,8 @@ def shade_bounce(scene, view, config: RenderConfig, paths, acc, cam_seed, li,
     depth = torch.where(prim >= 0, t, 10000.0)
     # dead/miss lanes carry t = BIG_T; sanitize before any position math
     t = torch.where(prim >= 0, t, 1.0)
-    acc[:, 3] += torch.where(is_primary & alive, depth, 0.0)
-
-    def add_contrib(contrib, mask):
-        acc[:, :3] += torch.where(mask[:, None], contrib, 0.0)
+    acc = acc + torch.nn.functional.pad(
+        torch.where(is_primary & alive, depth, 0.0)[:, None], (3, 0))
 
     # sky on miss (pathtracer.h:84-91)
     miss = alive & (prim < 0)
@@ -247,7 +292,7 @@ def shade_bounce(scene, view, config: RenderConfig, paths, acc, cam_seed, li,
                         miss)
     if config.clamp_fireflies:
         sky_c = _clamp_intensity(sky_c, config.clamp_value)
-    add_contrib(_fixnan(sky_c), miss)
+    acc = _add_rgb(acc, _fixnan(sky_c), miss)
 
     hit = alive & (prim >= 0)
     i_pos = o + t[:, None] * d
@@ -270,7 +315,7 @@ def shade_bounce(scene, view, config: RenderConfig, paths, acc, cam_seed, li,
     c_light = torch.where(paths["prev_specular"][:, None], c_spec, c_mis)
     if config.clamp_fireflies:
         c_light = _clamp_intensity(c_light, config.clamp_value)
-    add_contrib(_fixnan(c_light), lit)
+    acc = _add_rgb(acc, _fixnan(c_light), lit)
 
     active = hit & ~sd.emissive
 
@@ -373,11 +418,47 @@ def shade_bounce(scene, view, config: RenderConfig, paths, acc, cam_seed, li,
 
 
 def apply_shadow(acc, shadow, occ):
-    """Fold unoccluded NEE contributions into the accumulator, in place
+    """Fold unoccluded NEE contributions into the accumulator
     (finalizeConnections analog, kernels/connections.h)."""
-    lit_conn = shadow["conn_ok"] & ~occ
-    acc[:, :3] += torch.where(lit_conn[:, None], shadow["potential"], 0.0)
-    return acc
+    return _add_rgb(acc, shadow["potential"], shadow["conn_ok"] & ~occ)
+
+
+def _pass_stats(ext, conn, **extra):
+    ext_t, conn_t = torch.stack(ext), torch.stack(conn)
+    return dict(extension_rays=ext_t, shadow_rays=conn_t,
+                total_extension=ext_t.sum(), total_shadow=conn_t.sum(),
+                **extra)
+
+
+def trace_paths(scene, view, config: RenderConfig, sample_base: int,
+                cam_seed: int):
+    """The classic executor: one wavefront of W*H*spp fresh paths traced for
+    max_path_length bounces. Returns (acc_delta [W*H,4], cam_seed', stats);
+    stats hold device tensors.
+
+    A bounce whose lanes are all dead is skipped, as the reference ends its
+    loop when no extension ray is left (rendercore.cpp:723-726), but still
+    advances cam_seed, so the sampling schedule does not depend on where
+    the paths died. Testing for that reads one bool back from the device
+    each bounce."""
+    wh = config.width * config.height
+    spp = config.spp_per_pass
+    paths = generate_eye_rays(view, config, sample_base)
+    n = paths["path_idx"].shape[0]
+    acc = torch.zeros((n, 4), dtype=torch.float32, device=view.pos.device)
+    ext, conn = [], []
+    for li in range(config.max_path_length):
+        n_alive = paths["alive"].sum()
+        ext.append(n_alive)
+        if not bool(n_alive):
+            cam_seed, _ = rng_mod.frame_r0(cam_seed, li + 1)
+            conn.append(torch.zeros_like(n_alive))
+            continue
+        paths, acc, cam_seed, n_conn = bounce_step(
+            scene, view, config, paths, acc, cam_seed, li)
+        conn.append(n_conn)
+    acc_px = untile_image(acc.reshape(spp, wh, -1), config).sum(0)
+    return acc_px, cam_seed, _pass_stats(ext, conn, primary_rays=n)
 
 
 def make_regen_pool(view: ViewPyramid, config: RenderConfig):
@@ -429,10 +510,7 @@ def trace_paths_regen(scene, view, config: RenderConfig, state: AccumState):
 
     acc_px = untile_image(acc.reshape(spp, wh, -1), config).sum(0)
     count_px = untile_image(count.reshape(spp, wh, 1), config).sum(0)[:, 0]
-    ext_t, conn_t = torch.stack(ext), torch.stack(conn)
-    stats = dict(extension_rays=ext_t, shadow_rays=conn_t,
-                 samples_completed=count.sum(),
-                 total_extension=ext_t.sum(), total_shadow=conn_t.sum())
+    stats = _pass_stats(ext, conn, samples_completed=count.sum())
     return acc_px, count_px, cam_seed, (paths, depth, sample_k), stats
 
 
@@ -448,11 +526,10 @@ def ensure_regen_state(view, state: AccumState, config: RenderConfig):
 
 def _check_config(config: RenderConfig):
     unsupported = dict(
-        path_regen=not config.path_regen, bsdf=config.bsdf != "lambert",
+        bsdf=config.bsdf != "lambert",
         filter_enabled=config.filter_enabled, taa_enabled=config.taa_enabled,
         sky_ibl=config.sky_ibl, scene_sharded=config.scene_sharded,
-        remat=config.remat, use_bvh=not config.use_bvh,
-        intersector=config.intersector != "auto")
+        use_bvh=not config.use_bvh, intersector=config.intersector != "auto")
     bad = [k for k, v in unsupported.items() if v]
     if bad:
         raise ValueError(f"render_pass does not support these RenderConfig "
@@ -461,10 +538,18 @@ def _check_config(config: RenderConfig):
 
 def render_pass(scene: DeviceScene, view: ViewPyramid, state: AccumState,
                 config: RenderConfig):
-    """One progressive pass of the path-regeneration executor. Runs on the
+    """One progressive pass: the regen executor when config.path_regen,
+    else the classic one (render_pass_auto in the JAX package). Runs on the
     scene's device: the trace kernels on a CUDA device, their plain versions
     on the CPU. Returns (new AccumState, stats)."""
     _check_config(config)
+    if not config.path_regen:
+        acc_delta, cam_seed, stats = trace_paths(
+            scene, view, config, state.sample_count, state.cam_seed)
+        return AccumState(
+            accumulator=state.accumulator + acc_delta,
+            sample_count=state.sample_count + config.spp_per_pass,
+            cam_seed=cam_seed), stats
     state = ensure_regen_state(view, state, config)
     acc_delta, count_px, cam_seed, pool, stats = trace_paths_regen(
         scene, view, config, state)

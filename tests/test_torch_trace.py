@@ -196,3 +196,20 @@ def test_non_cpu_tensors_never_take_the_plain_path(setup):
     with pytest.raises(ValueError, match="unsupported device"):
         trace_occluded(o, o, 1.0, mbvh)
     assert tk.trace_closest.launches == before
+
+
+def test_wrappers_detach_rays_that_carry_gradients(setup):
+    """Rays and tmax that require grad (a shadow tmax depends on vertex
+    positions) give the same outputs as detached ones, and no autograd
+    graph: traversal takes no gradient on either route."""
+    o, d = (torch.from_numpy(a) for a in (setup["o"], setup["d"]))
+    tmax = torch.full((o.shape[0],), 2.5)
+    want_c = trace_closest(o, d, tmax, setup["bvh"])
+    want_o = trace_occluded(o, d, tmax, setup["bvh"])
+    og, dg, tg = (x.clone().requires_grad_() for x in (o, d, tmax))
+    got_c = trace_closest(og * 1.0, dg * 1.0, tg * 1.0, setup["bvh"])
+    got_o = trace_occluded(og * 1.0, dg * 1.0, tg * 1.0, setup["bvh"])
+    for got, want in zip(got_c + (got_o,), want_c + (want_o,)):
+        assert not got.requires_grad and got.grad_fn is None
+        assert torch.equal(got, want)
+    assert (want_c[1] >= 0).any() and want_o.any()

@@ -110,7 +110,8 @@ def test_regen_slice_matches_jax_lockstep(cornell):
 
 def test_render_pass_rejects_unported_options(cornell):
     _, _, tds, tview = cornell
-    for kw in (dict(path_regen=False), dict(path_regen=True, bsdf="disney"),
+    for kw in (dict(path_regen=False, filter_enabled=True),
+               dict(path_regen=True, bsdf="disney"),
                dict(path_regen=True, sky_ibl=True)):
         cfg = RenderConfig(width=32, height=32, max_path_length=2, **kw)
         with pytest.raises(ValueError, match="does not support"):
