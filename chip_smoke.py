@@ -35,12 +35,30 @@ Phases; any failure exits non-zero before the result line is printed:
      peak memory; one profiled step (device ms, busy share, top device
      ops); then a 64x64 Cornell box, path 4, regen, fwd+bwd on the card and
      on the CPU, gradients compared per group by relative L2 error
-     (GRAD_RTOL, the bounds of tests/test_torch_grad.py).
+     (GRAD_RTOL, the bounds of tests/test_torch_grad.py);
+  6. [disney] the bathroom 512x512 (129,252 triangles) with the golden
+     16x32 gradient sky, bsdf="disney", sky_ibl=True, path 16, regen,
+     created and driven through RenderAPI.create("wavefront", ...,
+     device=card): 1 warm-up and 3 timed api.render() calls; Mrays/s, ms
+     per pass (core.stats["render_time"]), peak memory, the launches of
+     each kernel per pass (must be 16 and 16), the image (finite, mean > 0)
+     and get_ldr_image (finite, in [0, 1]); the Lambert scene of phase 3
+     driven the same way through RenderAPI, so both ms per pass have one
+     definition; one profiled pass printed beside the Lambert pass of
+     phase 3; then one warm-up and one timed fwd+bwd step of
+     regen_value_and_grad with remat and the parameter groups of [train]
+     (each gradient group finite and nonzero), and the 64x64 Cornell
+     fwd+bwd of phase 5 with test_sky, Disney and IBL on the card and on
+     the CPU (GRAD_RTOL);
+  7. [golden] utils/golden.py render_golden on the card and on the CPU:
+     >= 99% of pixels within rtol 1e-3 / atol 1e-4 of each other, and both
+     means and population stds within 1e-3 of ANCHOR_MEAN / ANCHOR_STD.
 It then prints one JSON line of per-kernel numbers, the card's name and
 power limit, and last the result line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -60,8 +78,14 @@ FP32_OPS_PER_S = 67e12
 SLAB_PAIR_OPS = 50
 MT_OPS = 54
 TRAIN_STEPS = 2            # timed fwd+bwd steps (bench.py:296)
+DISNEY_PASSES = 3          # timed api.render() calls of [disney]
+ANCHOR_TOL = 1e-3          # golden mean / std against the anchor
 # card-vs-CPU gradient bounds, relative L2 per group (tests/test_torch_grad.py)
 GRAD_RTOL = dict(color=1e-3, light=1e-3, offset=2e-2)
+# share of the 64x64 Disney + IBL regen pixels whose forward value must agree
+# between card and CPU; a CPU run with the vertices moved by 1e-7 agrees with
+# the unmoved one on 93.5% of them (cpu_jitter_pixels_agree)
+DISNEY_PIXELS_MIN = 0.9
 
 
 def _sh(cmd):
@@ -199,23 +223,34 @@ def check_kernels(scene, view, cfg, dev, iters, plain_iters):
     return out
 
 
+def _counts():
+    from lighthouse2_tpu_torch.render.kernels.trace import (
+        trace_closest, trace_occluded)
+    return dict(trace_closest=trace_closest.launches,
+                trace_occluded=trace_occluded.launches)
+
+
+def _zero_counts():
+    from lighthouse2_tpu_torch.render.kernels.trace import (
+        trace_closest, trace_occluded)
+    trace_closest.launches = 0
+    trace_occluded.launches = 0
+
+
 def main_path(scene, view, cfg, dev, passes):
     """Phase 3. Returns the numbers of the timed passes."""
     import torch
-    from lighthouse2_tpu_torch.render.kernels.trace import (
-        trace_closest, trace_occluded)
     from lighthouse2_tpu_torch.render.wavefront import (
         AccumState, finalize, render_pass)
 
     state = AccumState.make(cfg, dev)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    trace_closest.launches = 0
-    trace_occluded.launches = 0
+    _zero_counts()
     counts = [(0, 0)]
     t0 = time.perf_counter()
     state, stats = render_pass(scene, view, state, cfg)      # warm-up
-    counts.append((trace_closest.launches, trace_occluded.launches))
+    counts.append(tuple(_counts().values()))
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     warm_s = time.perf_counter() - t0
@@ -224,12 +259,11 @@ def main_path(scene, view, cfg, dev, passes):
     for _ in range(passes):
         state, stats = render_pass(scene, view, state, cfg)
         all_stats.append(stats)
-        counts.append((trace_closest.launches, trace_occluded.launches))
+        counts.append(tuple(_counts().values()))
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     dt = time.perf_counter() - t0
-    launches = dict(trace_closest=trace_closest.launches,
-                    trace_occluded=trace_occluded.launches)
+    launches = _counts()
     per_pass = [(b[0] - a[0], b[1] - a[1]) for a, b in zip(counts, counts[1:])]
     rays = sum(int(s["total_extension"]) + int(s["total_shadow"])
                for s in all_stats)
@@ -347,11 +381,8 @@ def _grad_summary(grads):
 
 def train_path(scene, view, cfg, dev, steps):
     """Phase 5: the fwd+bwd headline. Returns its numbers and the state."""
-    import dataclasses
     import torch
     from lighthouse2_tpu_torch.diff.render import regen_value_and_grad
-    from lighthouse2_tpu_torch.render.kernels.trace import (
-        trace_closest, trace_occluded)
     from lighthouse2_tpu_torch.render.wavefront import (
         AccumState, ensure_regen_state, render_pass)
 
@@ -369,16 +400,14 @@ def train_path(scene, view, cfg, dev, steps):
     warm_s = time.perf_counter() - t0
 
     torch.cuda.reset_peak_memory_stats(dev)
-    trace_closest.launches = 0
-    trace_occluded.launches = 0
+    _zero_counts()
     t0 = time.perf_counter()
     for _ in range(steps):
         loss, grads, state = regen_value_and_grad(scene, view, state, cfg,
                                                   target, params)
     torch.cuda.synchronize(dev)
     dt = time.perf_counter() - t0
-    launches = dict(trace_closest=trace_closest.launches,
-                    trace_occluded=trace_occluded.launches)
+    launches = _counts()
     peak = torch.cuda.max_memory_allocated(dev)
     summary = _grad_summary(grads)
     res = dict(steps=steps, seconds=dt, warmup_seconds=warm_s,
@@ -420,7 +449,6 @@ def train_path(scene, view, cfg, dev, steps):
 
 def profile_train_step(scene, view, cfg, state, dev):
     """One fwd+bwd step under torch.profiler: device time by kernel name."""
-    import dataclasses
     from lighthouse2_tpu_torch.diff.render import regen_value_and_grad
 
     cfg = dataclasses.replace(cfg, remat=True)
@@ -430,34 +458,253 @@ def profile_train_step(scene, view, cfg, state, dev):
                     dev, "[train profile] ")
 
 
-def grad_reference_check(dev):
-    """Phase 5, last: fwd+bwd of a small regen render on the card against
-    the same step through the plain versions on the CPU."""
+def grad_reference_check(dev, disney=False):
+    """Phase 5, last (and phase 6 with disney=True: test_sky, Disney and
+    IBL): fwd+bwd of a small regen render on the card against the same step
+    through the plain versions on the CPU.
+
+    Lambert paths take the same choices on both sides, so the whole image
+    and every gradient group must agree. Disney + IBL paths do not all: a
+    rounding step can flip a discrete choice of a lane, and the regen pool
+    then hands the later samples to other pixels. So the pixels are split
+    by their forward value: >= DISNEY_PIXELS_MIN of them must agree, and
+    the gradients are compared a second time with the pixels that differ
+    given zero weight on both sides (their target set to their own value);
+    those must agree within GRAD_RTOL. The unweighted comparison is
+    printed beside a CPU run whose vertices moved by ~1e-7, the size of the
+    choices' own noise."""
+    import numpy as np
     import torch
     from lighthouse2_tpu_torch.core.types import RenderConfig
     from lighthouse2_tpu_torch.diff.render import regen_value_and_grad
     from lighthouse2_tpu_torch.render.wavefront import AccumState
-    from lighthouse2_tpu_torch.scene.presets import cornell_box
+    from lighthouse2_tpu_torch.scene import presets
 
     cfg = RenderConfig(width=64, height=64, spp_per_pass=1, max_path_length=4,
                        path_regen=True, remat=True)
-    scene, cam = cornell_box(64, 64)
+    scene, cam = presets.cornell_box(64, 64)
+    if disney:
+        cfg = dataclasses.replace(cfg, bsdf="disney", sky_ibl=True)
+        presets.test_sky(scene)
+    tag = "[disney train reference] " if disney else "[train reference] "
+    cpu = torch.device("cpu")
+    synced = {w.type: (scene.sync(w), cam.get_view(w)) for w in (dev, cpu)}
+
+    def step(where, target, jitter=0.0):
+        ds, view = synced[where.type]
+        params, _ = _headline_params(ds, 64, where)
+        if jitter:
+            params["offset"] = jitter * torch.from_numpy(
+                np.random.default_rng(0).standard_normal(
+                    tuple(params["offset"].shape)).astype(np.float32))
+        _, grads, st = regen_value_and_grad(
+            ds, view, AccumState.make(cfg, where), cfg, target.to(where),
+            params)
+        img = st.accumulator[:, :3] / torch.clamp(st.pixel_count,
+                                                  min=1.0)[:, None]
+        return img.cpu(), {k: g.cpu() for k, g in grads.items()}
+
+    rel = lambda a, b: {k: ((a[k] - b[k]).norm() / b[k].norm()).item()
+                        for k in b}
+    target = torch.full((64 * 64, 3), 0.25)
+    (gi, gg), (ci, cg) = step(dev, target), step(cpu, target)
+    agree = torch.isclose(gi, ci, rtol=1e-3, atol=1e-4).all(-1)
+    loss = lambda img: ((img[agree] - 0.25) ** 2).mean().item()
+    res = dict(pixels_agree=agree.float().mean().item(),
+               loss_rel_diff=abs(loss(gi) - loss(ci)) / max(loss(ci), 1e-30),
+               grad_rel_l2=rel(gg, cg), bounds=GRAD_RTOL)
+    if disney:
+        # the pixels that differ weigh nothing: target = their own value
+        res["grad_rel_l2_agreeing_pixels"] = rel(
+            step(dev, torch.where(agree[:, None], target, gi))[1],
+            step(cpu, torch.where(agree[:, None], target, ci))[1])
+        ji, jg = step(cpu, target, 1e-7)
+        res["cpu_jitter_pixels_agree"] = torch.isclose(
+            ji, ci, rtol=1e-3, atol=1e-4).all(-1).float().mean().item()
+        res["cpu_jitter_grad_rel_l2"] = rel(jg, cg)
+        held, pixels_min = res["grad_rel_l2_agreeing_pixels"], \
+            DISNEY_PIXELS_MIN
+    else:
+        held, pixels_min = res["grad_rel_l2"], 1.0
+    print(tag + json.dumps(res), flush=True)
+    if (res["pixels_agree"] < pixels_min or res["loss_rel_diff"] > 1e-4
+            or any(held[k] > b for k, b in GRAD_RTOL.items())):
+        raise AssertionError("card and CPU gradients disagree")
+    return res
+
+
+def api_passes(api, dev, passes, tag):
+    """One warm-up (with the scene's sync) and `passes` timed api.render()
+    calls; checks the launches of each kernel per pass and the images.
+    Returns the numbers."""
+    import numpy as np
+    import torch
+
+    cfg = api.config
+    t0 = time.perf_counter()
+    api.render()                                    # sync + warm-up pass
+    torch.cuda.synchronize(dev)
+    warm_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero_counts()
+    per_pass, stats = [], []
+    for _ in range(passes):
+        before = _counts()
+        stats.append(dict(api.render()))
+        after = _counts()
+        per_pass.append({k: after[k] - before[k] for k in after})
+    launches = _counts()
+    render_s = sum(st["render_time"] for st in stats)
+    rays = sum(st["total_rays"] for st in stats)
+    img = api.get_image()
+    ldr = api.get_ldr_image()
+    res = dict(
+        passes=passes, warmup_seconds=warm_s, render_seconds=render_s,
+        mrays_per_s=rays / render_s / 1e6, rays=rays,
+        ms_per_pass=[st["render_time"] * 1e3 for st in stats],
+        mean_ms_per_pass=render_s * 1e3 / passes,
+        extension_rays=stats[-1]["extension_per_bounce"].tolist(),
+        shadow_rays=stats[-1]["shadow_per_bounce"].tolist(),
+        spp=api.core.stats["spp"], launches=launches,
+        launches_per_pass=per_pass,
+        image_mean=float(img.mean()),
+        image_finite=bool(np.isfinite(img).all()),
+        ldr_finite=bool(np.isfinite(ldr).all()),
+        ldr_min=float(ldr.min()), ldr_max=float(ldr.max()),
+        max_memory_allocated=torch.cuda.max_memory_allocated(dev))
+    print(tag + json.dumps(res), flush=True)
+    want = {k: cfg.max_path_length for k in launches}
+    if any(p != want for p in per_pass):
+        raise AssertionError(f"each kernel must launch {cfg.max_path_length} "
+                             f"times a pass, got {per_pass}")
+    if not (res["image_finite"] and res["image_mean"] > 0):
+        raise AssertionError("the image is not finite and positive")
+    if not (res["ldr_finite"] and res["ldr_min"] >= 0.0
+            and res["ldr_max"] <= 1.0):
+        raise AssertionError("get_ldr_image is not finite in [0, 1]")
+    return res
+
+
+def disney_path(cfg, dev, passes):
+    """Phase 6, forward: the bathroom with the golden sky, Disney and IBL,
+    through RenderAPI. Returns (numbers, api)."""
+    from lighthouse2_tpu_torch.api import RenderAPI
+    from lighthouse2_tpu_torch.scene.bench_scene import bathroom
+    from lighthouse2_tpu_torch.utils.golden import golden_sky
+
+    cfg = dataclasses.replace(cfg, bsdf="disney", sky_ibl=True)
+    api = RenderAPI.create("wavefront", cfg, device=dev)
+    api.scene, api.camera = bathroom(cfg.width, cfg.height)
+    api.scene.set_sky(golden_sky())
+    res = api_passes(api, dev, passes, "[disney] ")
+    if not api.device_scene().sky.has_ibl:
+        raise AssertionError("the Disney scene's sky has no IBL tables")
+    return res, api
+
+
+def lambert_api_path(host, cam, cfg, dev, passes):
+    """Phase 6: the Lambert scene of phase 3 (already synced to the card)
+    through RenderAPI, timed as the Disney passes are. Then the two timers
+    alternate, twice: `passes` render_pass calls with one synchronize at the
+    end (phase 3's) and `passes` api.render() calls (ms per pass each)."""
+    import torch
+    from lighthouse2_tpu_torch.api import RenderAPI
+    from lighthouse2_tpu_torch.render.wavefront import AccumState, render_pass
+
+    api = RenderAPI.create("wavefront", cfg, device=dev)
+    api.scene, api.camera = host, cam
+    res = api_passes(api, dev, passes, "[disney] Lambert through RenderAPI: ")
+    scene, view = host.sync(dev), cam.get_view(dev)
+    state, _ = render_pass(scene, view, AccumState.make(cfg, dev), cfg)
+    alt = dict(render_pass_ms=[], api_ms=[])
+    for _ in range(2):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for _ in range(passes):
+            state, _ = render_pass(scene, view, state, cfg)
+        torch.cuda.synchronize(dev)
+        alt["render_pass_ms"].append((time.perf_counter() - t0) * 1e3 / passes)
+        alt["api_ms"].append(sum(api.render()["render_time"]
+                                 for _ in range(passes)) * 1e3 / passes)
+    print("[disney] Lambert, the two timers alternated: " + json.dumps(alt),
+          flush=True)
+    res["alternated"] = alt
+    return res
+
+
+def disney_train_step(api, dev):
+    """Phase 6: fwd+bwd of the Disney + IBL path with remat and the
+    parameter groups of [train]; one warm-up step and one timed."""
+    import torch
+    from lighthouse2_tpu_torch.diff.render import regen_value_and_grad
+    from lighthouse2_tpu_torch.render.wavefront import (
+        AccumState, ensure_regen_state)
+
+    cfg = dataclasses.replace(api.config, remat=True)
+    scene = api.device_scene()
+    view = api.camera.get_view(dev)
+    params, target = _headline_params(scene, cfg.width, dev)
+    state = ensure_regen_state(view, AccumState.make(cfg, dev), cfg)
+    t0 = time.perf_counter()
+    _, _, state = regen_value_and_grad(scene, view, state, cfg, target,
+                                       params)              # warm-up
+    torch.cuda.synchronize(dev)
+    warm_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero_counts()
+    t0 = time.perf_counter()
+    loss, grads, _ = regen_value_and_grad(scene, view, state, cfg, target,
+                                          params)
+    torch.cuda.synchronize(dev)
+    dt = time.perf_counter() - t0
+    launches = _counts()
+    summary = _grad_summary(grads)
+    res = dict(ms_per_step=dt * 1e3, warmup_seconds=warm_s, loss=loss.item(),
+               launches=launches,
+               max_memory_allocated=torch.cuda.max_memory_allocated(dev),
+               grads=summary)
+    print("[disney train] " + json.dumps(res), flush=True)
+    want = {k: cfg.max_path_length for k in launches}
+    if launches != want:
+        raise AssertionError(f"each kernel must launch {cfg.max_path_length} "
+                             f"times a Disney fwd+bwd step, got {launches}")
+    bad = {k: v for k, v in summary.items()
+           if not (v["finite"] and v["nonzero"] > 0)}
+    if bad:
+        raise AssertionError(f"Disney gradients not finite or all zero: {bad}")
+    return res
+
+
+def golden_check(dev):
+    """Phase 7: the golden frame on the card and on the CPU, against each
+    other and against the JAX package's anchor."""
+    import torch
+    from lighthouse2_tpu_torch.utils import golden
+
     out = {}
     for where in (dev, torch.device("cpu")):
-        ds, view = scene.sync(where), cam.get_view(where)
-        params, target = _headline_params(ds, 64, where)
-        loss, grads, _ = regen_value_and_grad(
-            ds, view, AccumState.make(cfg, where), cfg, target + 0.25, params)
-        out[where.type] = (loss.item(), {k: g.cpu() for k, g in grads.items()})
-    (gl, gg), (cl, cg) = out[dev.type], out["cpu"]
-    err = {k: ((gg[k] - cg[k]).norm() / cg[k].norm()).item() for k in cg}
-    res = dict(loss_card=gl, loss_cpu=cl,
-               loss_rel_diff=abs(gl - cl) / max(abs(cl), 1e-30),
-               grad_rel_l2=err, bounds=GRAD_RTOL)
-    print("[train reference] " + json.dumps(res), flush=True)
-    if res["loss_rel_diff"] > 1e-4 or any(err[k] > b
-                                          for k, b in GRAD_RTOL.items()):
-        raise AssertionError("card and CPU gradients disagree")
+        t0 = time.perf_counter()
+        a = golden.render_golden(where).cpu()
+        out[where.type] = (a, time.perf_counter() - t0)
+    (ga, g_s), (ca, c_s) = out[dev.type], out["cpu"]
+    close = torch.isclose(ga, ca, rtol=1e-3, atol=1e-4).all(-1)
+    stat = lambda a: dict(mean=a.mean().item(),
+                          std=a.std(correction=0).item(),
+                          finite=bool(torch.isfinite(a).all()))
+    res = dict(pixels_close=close.float().mean().item(), card=stat(ga),
+               cpu=stat(ca), anchor_mean=golden.ANCHOR_MEAN,
+               anchor_std=golden.ANCHOR_STD, card_seconds=g_s,
+               cpu_seconds=c_s)
+    print("[golden] " + json.dumps(res), flush=True)
+    if res["pixels_close"] < 0.99:
+        raise AssertionError("golden frame: card and CPU disagree")
+    for side in ("card", "cpu"):
+        st = res[side]
+        if not (st["finite"]
+                and abs(st["mean"] - golden.ANCHOR_MEAN) < ANCHOR_TOL
+                and abs(st["std"] - golden.ANCHOR_STD) < ANCHOR_TOL):
+            raise AssertionError(f"golden frame on the {side} misses the "
+                                 f"anchor: {st}")
     return res
 
 
@@ -518,21 +765,52 @@ def main() -> int:
     main_res, state = main_path(scene, view, cfg, dev, passes=3)
     print(f"[main] {main_res['mrays_per_s']:.3f} Mrays/s on {card} "
           f"(bathroom {size}x{size}, path {path_len}, regen)", flush=True)
-    profile_pass(scene, view, cfg, state, dev)
+    lambert_prof = profile_pass(scene, view, cfg, state, dev)
     reference_check(dev)
     train_res, train_state = train_path(scene, view, cfg, dev, TRAIN_STEPS)
     profile_train_step(scene, view, cfg, train_state, dev)
     grad_reference_check(dev)
 
+    disney_res, api = disney_path(cfg, dev, DISNEY_PASSES)
+    lambert_api = lambert_api_path(host, cam, cfg, dev, DISNEY_PASSES)
+    print(f"[disney] {disney_res['mrays_per_s']:.3f} Mrays/s, "
+          f"{disney_res['mean_ms_per_pass']:.1f} ms/pass on {card} (bathroom "
+          f"{size}x{size}, path {path_len}, regen, Disney, IBL; Lambert "
+          f"through RenderAPI {lambert_api['mrays_per_s']:.3f} Mrays/s, "
+          f"{lambert_api['mean_ms_per_pass']:.1f} ms/pass; wall ratio "
+          f"{disney_res['mean_ms_per_pass'] / lambert_api['mean_ms_per_pass']:.3f}"
+          f")", flush=True)
+    disney_prof = _profile(lambda: api.render(), dev, "[disney profile] ")
+    print("[disney profile] beside Lambert: " + json.dumps(dict(
+        device_ms=dict(disney=disney_prof["device_ms"],
+                       lambert=lambert_prof["device_ms"]),
+        wall_ms=dict(disney=disney_prof["wall_ms"],
+                     lambert=lambert_prof["wall_ms"]),
+        device_busy_share=dict(disney=disney_prof["device_busy_share"],
+                               lambert=lambert_prof["device_busy_share"]),
+        kernel_ms_per_launch=dict(
+            disney=disney_prof["kernel_ms_per_launch"],
+            lambert=lambert_prof["kernel_ms_per_launch"]))), flush=True)
+    disney_train = disney_train_step(api, dev)
+    grad_reference_check(dev, disney=True)
+    golden_check(dev)
+
     rows = []
-    for name, batch, line in (("trace_closest", "bounce1", 229),
-                              ("trace_occluded", "shadow", 414)):
+    for name, batch, line, sym in (
+            ("trace_closest", "bounce1", 229, "closest_kernel"),
+            ("trace_occluded", "shadow", 414, "occluded_kernel")):
         k = kern[name][batch]
         rows.append(dict(
             name=name, route="cuda", source="lighthouse2_tpu_torch/csrc/trace.cu",
             replaces=f"lighthouse2_tpu/render/kernels/trace.py:{line}",
             launches=main_res["launches"][name],
             launches_fwd_bwd_per_step=train_res["launches_per_step"][name],
+            launches_disney_per_pass=disney_res["launches"][name]
+            // DISNEY_PASSES,
+            launches_disney_fwd_bwd_step=disney_train["launches"][name],
+            main_path_ms_per_launch=dict(
+                lambert=lambert_prof["kernel_ms_per_launch"][sym],
+                disney=disney_prof["kernel_ms_per_launch"][sym]),
             max_abs_err=k["max_abs_err"],
             ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
             bound_by=k["bound_by"], library_ms=None))

@@ -4,7 +4,9 @@
 one of tris, materials, lights, sky, textures, bvh (the fields of the JAX
 package's DeviceScene and its DeviceBVH) or view (a ViewPyramid), and the
 values are numpy arrays, or ints for the static counts (lights.s_tri,
-materials.s_base_maps, bvh.max_leaf, ...). Unknown fields are ignored. The
+materials.s_base_maps, bvh.max_leaf, ...) and sky.has_ibl (an int or a
+bool). The sky's IBL tables (sky.pdf, sky.cdf_rows, sky.cdf_cond,
+sky.nee_energy) come across when present. Unknown fields are ignored. The
 caller flattens its objects with np.asarray; no JAX type reaches the port.
 That lets both packages compute on the same BVH topology. The port-only BVH
 fields (the BVH2 depth and the packed BVH4 of bvh/wide.py) are computed here

@@ -2,7 +2,8 @@
 
 Counterpart of lighthouse2_tpu/core/geometry.py: dot, cross, normalize,
 reflect, onb, oriented_frame, tangent_to_world, safe_origin,
-consistent_normal and mt_comp, with the same arithmetic in the same order.
+consistent_normal and mt_comp, with the same arithmetic in the same order;
+sqrt0 is the port's own (a square root whose gradient at 0 is not NaN).
 """
 from __future__ import annotations
 
@@ -24,6 +25,14 @@ def cross(a, b):
 
 def normalize(a):
     return a * torch.rsqrt(torch.clamp(dot(a, a), min=1e-20))[..., None]
+
+
+def sqrt0(x):
+    """sqrt(max(x, 0)), with a zero gradient where x <= 0: torch.sqrt's
+    gradient is inf at 0, and the clamp's zero cotangent times inf is NaN
+    (as in the JAX package, whose sqrt(maximum(x, 0)) has this NaN)."""
+    pos = x > 0
+    return torch.where(pos, torch.sqrt(torch.where(pos, x, 1.0)), 0.0)
 
 
 def reflect(d, n):

@@ -17,9 +17,9 @@ class RenderConfig:
     """Static render configuration (field meanings as in the JAX package).
 
     The port implements the classic and the path-regeneration executors
-    (with remat) and the Lambert BSDF; render entry points reject the
-    options it does not implement yet (disney, filter, sky_ibl, scene
-    sharding, an intersector other than "auto")."""
+    (with remat), the Lambert and Disney BSDFs and sky IBL; render entry
+    points reject the options it does not implement yet (filter, TAA,
+    scene sharding, use_bvh=False, an intersector other than "auto")."""
     width: int = 512
     height: int = 512
     spp_per_pass: int = 1

@@ -2,7 +2,9 @@
 
 Counterpart of lighthouse2_tpu/render/bsdf_lambert.py (is_specular_material,
 evaluate, sample and their Fresnel / refraction helpers), branch-free and
-masked exactly as there.
+masked exactly as there. Difference: the cosines of the refracted direction
+under total internal reflection (_fr_l, _refract_l) use geometry.sqrt0,
+whose gradient is 0 where the JAX package's is NaN; the values are equal.
 """
 from __future__ import annotations
 
@@ -11,7 +13,7 @@ import math
 import torch
 
 from lighthouse2_tpu_torch.core.geometry import (
-    dot, normalize, reflect, tangent_to_world)
+    dot, normalize, reflect, sqrt0, tangent_to_world)
 from lighthouse2_tpu_torch.core.sampling import cosine_hemisphere
 
 INV_PI = 1.0 / math.pi
@@ -32,7 +34,7 @@ def _fr_l(v_dot_n, eio):
     v_dot_n = torch.abs(v_dot_n)
     sin_t2 = eio * eio * (1.0 - v_dot_n * v_dot_n)
     tir = sin_t2 > 1.0
-    l_dot_n = torch.sqrt(torch.clamp(1.0 - sin_t2, min=0.0))
+    l_dot_n = sqrt0(1.0 - sin_t2)
     r1 = (v_dot_n - eio * l_dot_n) / torch.clamp(v_dot_n + eio * l_dot_n,
                                                  min=1e-20)
     r2 = (l_dot_n - eio * v_dot_n) / torch.clamp(l_dot_n + eio * v_dot_n,
@@ -46,7 +48,7 @@ def _refract_l(wi, n, eta):
     sin2_i = torch.clamp(1.0 - cos_i * cos_i, min=0.0)
     sin2_t = eta * eta * sin2_i
     ok = sin2_t < 1.0
-    cos_t = torch.sqrt(torch.clamp(1.0 - sin2_t, min=0.0))
+    cos_t = sqrt0(1.0 - sin2_t)
     wt = eta[..., None] * (-wi) + (eta * cos_i - cos_t)[..., None] * n
     return wt, ok
 

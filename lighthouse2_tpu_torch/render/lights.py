@@ -2,10 +2,12 @@
 
 Counterpart of lighthouse2_tpu/render/lights.py (potential_contributions,
 calculate_light_pdf, light_pick_prob, sky_pick_prob, random_point_on_light)
-for the four analytic light types. The sky as an NEE light (IBL) is not
-ported yet; callers pass no sky. Per-light-per-ray intermediates are
-[L, N], rays on the minor axis, as in the JAX package. Unified light index
-space: [0, LT) area, [LT, LT+LP) point, then spot, then directional.
+for the four analytic light types and the sky as an NEE light (IBL).
+Per-light-per-ray intermediates are [L, N], rays on the minor axis, as in
+the JAX package. Unified light index space: [0, LT) area, [LT, LT+LP)
+point, then spot, then directional, then (with IBL) the sky as the last
+slot. potential_contributions returns the potentials only, where the JAX
+function also returns the slot layout, which no caller reads.
 """
 from __future__ import annotations
 
@@ -13,7 +15,8 @@ import torch
 
 from lighthouse2_tpu_torch.core.geometry import dot
 from lighthouse2_tpu_torch.core.sampling import random_barycentrics
-from lighthouse2_tpu_torch.scene.device_scene import DeviceLights
+from lighthouse2_tpu_torch.render.sky import sample_sky
+from lighthouse2_tpu_torch.scene.device_scene import DeviceLights, DeviceSky
 
 DIR_LIGHT_DISTANCE = 1000.0  # lights_shared.h:257 (I - 1000*L)
 
@@ -103,10 +106,17 @@ def _pick_row(mat, idx):
     return mat.gather(0, idx.to(torch.int64)[None])[0]
 
 
-def light_pick_prob(lights: DeviceLights, ltri_idx, o, last_n, i_pos):
+def _has_ibl(sky) -> bool:
+    return sky is not None and sky.has_ibl
+
+
+def light_pick_prob(lights: DeviceLights, ltri_idx, o, last_n, i_pos,
+                    sky: DeviceSky | None = None):
     """MIS pick probability for an implicit area-light hit
     (lights_shared.h:123-138): potentials from the previous vertex o/last_n,
-    area lights evaluated toward the actual hit point i_pos."""
+    area lights evaluated toward the actual hit point i_pos. With an IBL
+    sky its potential joins the normalisation, so the pick probabilities
+    stay a partition of unity over all slots."""
     if not _present(lights)[0]:
         return torch.zeros(i_pos.shape[0], device=i_pos.device)
     lt = lights.tri_v0.shape[0]
@@ -114,20 +124,38 @@ def light_pick_prob(lights: DeviceLights, ltri_idx, o, last_n, i_pos):
     target = tuple(torch.broadcast_to(c, (lt, n)) for c in _rows(i_pos))
     pot = potential_contributions(lights, o, last_n, area_point=target)
     s = pot.sum(dim=0)
+    if _has_ibl(sky):
+        s = s + sky.nee_energy
     p = _pick_row(pot, torch.clamp(ltri_idx, 0, pot.shape[0] - 1))
     return torch.where(s > 0, p / torch.where(s > 0, s, 1.0), 0.0)
 
 
-def random_point_on_light(lights: DeviceLights, r0, r1, i_pos, n):
+def sky_pick_prob(lights: DeviceLights, sky: DeviceSky, o, last_n):
+    """Probability that NEE at the previous vertex picked the sky slot: the
+    skydome counterpart of light_pick_prob for MIS on misses."""
+    pot = potential_contributions(lights, o, last_n)
+    s = pot.sum(dim=0) + sky.nee_energy
+    return torch.where(s > 0, sky.nee_energy / torch.where(s > 0, s, 1.0),
+                       0.0)
+
+
+def random_point_on_light(lights: DeviceLights, r0, r1, i_pos, n,
+                          sky: DeviceSky | None = None, r2=None, r3=None):
     """RandomPointOnLight (lights_shared.h:172-261), vectorized.
+
+    An IBL `sky` adds the skydome as the last slot of the pick CDF, with
+    potential sky.nee_energy: a lane that picks it importance-samples a
+    direction with sample_sky(r2, r3) and gets a virtual point at
+    DIR_LIGHT_DISTANCE along it, with the solid-angle pdf.
 
     Returns dict(point [N,3], light_pdf [N], pick_prob [N], color [N,3],
     ltri [N] — the picked area-light slot, or -1 for delta lights)."""
     has_a, has_p, has_s, has_d = _present(lights)
+    has_sky = _has_ibl(sky)
     n_rays = i_pos.shape[0]
     dev = i_pos.device
     zero = torch.zeros((n_rays,), device=dev)
-    if not (has_a or has_p or has_s or has_d):
+    if not (has_a or has_p or has_s or has_d or has_sky):
         return dict(point=i_pos + 1.0, light_pdf=zero, pick_prob=zero,
                     color=torch.zeros((n_rays, 3), device=dev),
                     ltri=torch.full((n_rays,), -1, dtype=torch.int64,
@@ -151,6 +179,9 @@ def random_point_on_light(lights: DeviceLights, r0, r1, i_pos, n):
         area_pt = (ptx, pty, ptz)
 
     pot = potential_contributions(lights, i_pos, n, area_point=area_pt)
+    if has_sky:
+        pot = torch.cat([pot, torch.broadcast_to(sky.nee_energy,
+                                                 (1, n_rays))], dim=0)
     s = pot.sum(dim=0)
     cdf = torch.cumsum(pot, dim=0)
     pick = (cdf < (r1 * s)[None]).to(torch.int64).sum(dim=0)
@@ -240,6 +271,17 @@ def random_point_on_light(lights: DeviceLights, r0, r1, i_pos, n):
         pz = torch.where(is_dir, iz - DIR_LIGHT_DISTANCE * dd[2], pz)
         light_pdf = torch.where(is_dir, pdf_dir, light_pdf)
         col = [torch.where(is_dir, cd[c], col[c]) for c in range(3)]
+
+    if has_sky:        # the sky slot, last
+        is_sky = pick >= lt + lp + ls + ld
+        ss = sample_sky(sky, r2, r3)
+        sdir = ss["dir"]
+        px = torch.where(is_sky, ix + DIR_LIGHT_DISTANCE * sdir[:, 0], px)
+        py = torch.where(is_sky, iy + DIR_LIGHT_DISTANCE * sdir[:, 1], py)
+        pz = torch.where(is_sky, iz + DIR_LIGHT_DISTANCE * sdir[:, 2], pz)
+        light_pdf = torch.where(is_sky, ss["pdf"], light_pdf)
+        col = [torch.where(is_sky, ss["radiance"][:, c], col[c])
+               for c in range(3)]
 
     light_pdf = torch.where(s > 0, light_pdf, 0.0)
     return dict(point=torch.stack([px, py, pz], dim=-1), light_pdf=light_pdf,

@@ -1,12 +1,14 @@
 """Camera (reference: lib/RenderSystem/camera.cpp).
 
-Counterpart of lighthouse2_tpu/scene/camera.py (Camera.look_at, matrix,
-get_view), without JSON serialization. get_view places the ViewPyramid's
-tensors on a device resolved by device.resolve_device.
+Counterpart of lighthouse2_tpu/scene/camera.py (Camera with its tonemap
+fields, look_at, matrix, get_view, and JSON serialize / deserialize, the
+analog of camera.cpp:154-212). get_view places the ViewPyramid's tensors on
+a device resolved by device.resolve_device.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
 import math
 
 import numpy as np
@@ -28,6 +30,12 @@ class Camera:
     fov: float = 40.0            # degrees (camera.h:34)
     aspect_ratio: float = 1.0
     pixel_count: tuple = (512, 512)   # (w, h)
+    # tonemap parameters (camera.h:40-47), read by render.tonemap
+    brightness: float = 0.0
+    contrast: float = 0.0
+    gamma: float = 2.2
+    tonemapper: int = 4          # reinhard-jodie
+    clamp_value: float = 10.0
 
     def __post_init__(self):
         self.position = np.asarray(self.position, np.float32)
@@ -72,3 +80,18 @@ class Camera:
             aperture=t(self.aperture), spread_angle=t(spread),
             image_plane=t(image_plane), focal_distance=t(self.focal_distance),
             distortion=t(self.distortion))
+
+    def serialize(self, path):
+        d = {k: (v.tolist() if isinstance(v, np.ndarray) else v)
+             for k, v in dataclasses.asdict(self).items()}
+        with open(path, "w") as fh:
+            json.dump(d, fh, indent=2)
+
+    @staticmethod
+    def deserialize(path) -> "Camera":
+        with open(path) as fh:
+            d = json.load(fh)
+        d["position"] = np.asarray(d["position"], np.float32)
+        d["direction"] = np.asarray(d["direction"], np.float32)
+        d["pixel_count"] = tuple(d["pixel_count"])
+        return Camera(**d)

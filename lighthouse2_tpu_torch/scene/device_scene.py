@@ -3,9 +3,8 @@
 Counterpart of lighthouse2_tpu/scene/device_scene.py (DeviceTriangles,
 DeviceMaterials, DeviceLights, DeviceSky, DeviceTextures, DeviceScene,
 build_lights_np). Differences: plain dataclasses instead of flax pytrees;
-the static presence counts (s_tri, s_base_maps, ...) are ordinary int
-fields; DeviceSky carries no IBL tables (sky importance sampling is not
-ported yet); there is no cluster BVH.
+the static presence counts (s_tri, s_base_maps, ...) and DeviceSky.has_ibl
+are ordinary int / bool fields; there is no cluster BVH.
 """
 from __future__ import annotations
 
@@ -115,8 +114,21 @@ class DeviceLights:
 
 @dataclasses.dataclass
 class DeviceSky:
-    """Equirectangular HDR skydome [H,W,3]; constant colour when 1x1."""
+    """Equirectangular HDR skydome [H,W,3]; constant colour when 1x1.
+
+    The IBL tables (render/sky.py build_sky_cdf, built at sync when the sky
+    has more than one texel): pixel-measure pdf, marginal and conditional
+    CDFs, and the NEE potential. has_ibl is a plain bool, true only when
+    the tables exist."""
     pixels: torch.Tensor
+    pdf: torch.Tensor | None = None        # [H,W] pixel-measure probabilities
+    cdf_rows: torch.Tensor | None = None   # [H] marginal CDF over rows
+    cdf_cond: torch.Tensor | None = None   # [H,W] conditional CDF per row
+    nee_energy: torch.Tensor | None = None  # 0-d potential (pi * mean lum)
+    has_ibl: bool = False
+
+    def __post_init__(self):
+        self.has_ibl = bool(self.has_ibl)
 
 
 @dataclasses.dataclass

@@ -7,8 +7,9 @@ bench_scene.bathroom) use. Differences:
     world triangles) — the JAX package's sync(two_level=False) path. The
     two-level TLAS, the native builder and the TPU cluster tiles are not
     built;
-  - no OBJ/glTF loading, skinning, morph targets, sky loading or material
-    serialization yet.
+  - set_sky takes pixels; load_sky (HDR files and their .npz cache) is not
+    ported, nor OBJ/glTF loading, skinning, morph targets or material
+    serialization.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import numpy as np
 from lighthouse2_tpu_torch.bvh.builder import build_sah_bvh_numpy
 from lighthouse2_tpu_torch.bvh.traverse import device_bvh_from_flat
 from lighthouse2_tpu_torch.device import resolve_device
+from lighthouse2_tpu_torch.render.sky import build_sky_cdf
 from lighthouse2_tpu_torch.scene.device_scene import (
     DeviceLights, DeviceMaterials, DeviceScene, DeviceSky, DeviceTriangles,
     build_lights_np, empty_textures, to_device)
@@ -48,6 +50,7 @@ class HostScene:
         self.spot_lights: list[HostSpotLight] = []
         self.dir_lights: list[HostDirectionalLight] = []
         self.textures: list = []
+        self.sky_pixels = None
         self.dirty = True
         self._cached = None
 
@@ -99,6 +102,26 @@ class HostScene:
         self.textures.append(texture)
         self.dirty = True
         return len(self.textures) - 1
+
+    def set_sky(self, pixels) -> None:
+        """Equirect HDR pixels [H,W,3] or a constant colour (a 1-D colour
+        becomes 1x1)."""
+        p = np.asarray(pixels, np.float32)
+        if p.ndim == 1:
+            p = p.reshape(1, 1, 3)
+        self.sky_pixels = p
+        self.dirty = True
+
+    def sky_arrays(self) -> dict:
+        """The DeviceSky fields as numpy arrays: the pixels (1x1 black
+        without a sky) and, for more than one texel, the IBL tables."""
+        px = (self.sky_pixels if self.sky_pixels is not None
+              else np.zeros((1, 1, 3), np.float32))
+        if px.shape[0] * px.shape[1] <= 1:
+            return dict(pixels=px)
+        pdf, cdf_rows, cdf_cond, nee_e = build_sky_cdf(px)
+        return dict(pixels=px, pdf=pdf, cdf_rows=cdf_rows, cdf_cond=cdf_cond,
+                    nee_energy=np.asarray(nee_e, np.float32), has_ibl=True)
 
     def flatten_instances(self):
         """Walk the root nodes; returns [(mesh_id, world 4x4)]."""
@@ -167,8 +190,7 @@ class HostScene:
                                  self.spot_lights, self.dir_lights)
         flat = build_sah_bvh_numpy(world["v0"], world["v1"], world["v2"])
         return dict(tris=tris, materials=materials, lights=lights,
-                    sky=np.zeros((1, 1, 3), np.float32), bvh=flat,
-                    world=world)
+                    sky=self.sky_arrays(), bvh=flat, world=world)
 
     def sync(self, device=None) -> DeviceScene:
         """Upload the scene to `device` (default: the card; see
@@ -185,7 +207,7 @@ class HostScene:
             tris=to_device(DeviceTriangles, a["tris"], dev),
             materials=to_device(DeviceMaterials, a["materials"], dev),
             lights=to_device(DeviceLights, a["lights"], dev),
-            sky=to_device(DeviceSky, dict(pixels=a["sky"]), dev),
+            sky=to_device(DeviceSky, a["sky"], dev),
             textures=textures,
             bvh=device_bvh_from_flat(a["bvh"], w["v0"], w["v1"], w["v2"], dev))
         self._cached = scene

@@ -1,6 +1,7 @@
 """Programmatic test scenes.
 
-Numpy copy of lighthouse2_tpu/scene/presets.py (cornell_box and its helpers).
+Numpy copy of lighthouse2_tpu/scene/presets.py: test_sky, cornell_box and
+its helpers, single_triangle.
 """
 from __future__ import annotations
 
@@ -9,6 +10,15 @@ import numpy as np
 from lighthouse2_tpu_torch.scene.camera import Camera
 from lighthouse2_tpu_torch.scene.host_mesh import HostMesh
 from lighthouse2_tpu_torch.scene.host_scene import HostScene
+
+
+def test_sky(scene: HostScene, h=8, w=16):
+    """TESTSKY analog (host_skydome.cpp:72-80): R/G/B thirds by latitude."""
+    sky = np.zeros((h, w, 3), np.float32)
+    sky[: h // 3, :, 0] = 1.0
+    sky[h // 3: 2 * h // 3, :, 1] = 1.0
+    sky[2 * h // 3:, :, 2] = 1.0
+    scene.set_sky(sky)
 
 
 def _box_meshes(scene: HostScene, size=1.0):
@@ -78,3 +88,17 @@ def _block_mesh(w, h, d, mat):
         [2, 1, 5], [2, 5, 6],        # right (+x)
     ], np.int32)
     return HostMesh.from_indexed_data(v, faces, material=mat, flat=True)
+
+
+def single_triangle(width=64, height=64):
+    """BASELINE config 1: a single triangle in front of the camera."""
+    scene = HostScene()
+    mat = scene.add_material(name="tri", color=(0.8, 0.3, 0.2))
+    v = np.array([[-1, 0, 0], [1, 0, 0], [0, 1.5, 0]], np.float32)
+    idx = np.array([[0, 1, 2]], np.int32)
+    scene.add_instance(scene.add_mesh(
+        HostMesh.from_indexed_data(v, idx, material=mat, flat=True)))
+    scene.set_sky((0.1, 0.1, 0.1))
+    cam = Camera(pixel_count=(width, height))
+    cam.look_at((0, 0.5, 3.0), (0, 0.5, 0.0))
+    return scene, cam

@@ -58,7 +58,8 @@ def assert_scene_equal(port_scene, arrays):
         for f in dataclasses.fields(obj):
             key = f"{g}.{f.name}"
             if key not in arrays:
-                assert f.name in PORT_ONLY, key
+                # absent on both sides (a sky without IBL tables) or port-only
+                assert f.name in PORT_ONLY or getattr(obj, f.name) is None, key
                 continue
             got, want = getattr(obj, f.name), arrays[key]
             if isinstance(got, torch.Tensor):

@@ -111,8 +111,8 @@ def test_regen_slice_matches_jax_lockstep(cornell):
 def test_render_pass_rejects_unported_options(cornell):
     _, _, tds, tview = cornell
     for kw in (dict(path_regen=False, filter_enabled=True),
-               dict(path_regen=True, bsdf="disney"),
-               dict(path_regen=True, sky_ibl=True)):
+               dict(path_regen=True, taa_enabled=True),
+               dict(path_regen=True, scene_sharded=True)):
         cfg = RenderConfig(width=32, height=32, max_path_length=2, **kw)
         with pytest.raises(ValueError, match="does not support"):
             twf.render_pass(tds, tview, twf.AccumState.make(cfg, "cpu"), cfg)
