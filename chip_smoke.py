@@ -9,14 +9,23 @@ toolkit (nvcc on PATH or under /usr/local/cuda):
 Phases; any failure exits non-zero before the result line is printed:
   1. the card, torch / CUDA / nvcc versions; build csrc/trace.cu with nvcc
      for sm_90a and print its -Xptxas -v report;
-  2. both trace kernels on the full bathroom scene (129,252 triangles) for
-     the 512x512 primary rays, the bounce-1 rays of one shade_bounce and
-     that bounce's NEE shadow batch, against two references: their plain
-     version, the BVH4 walk of bvh/wide.py (t, prim, u, v, occlusion and the
-     per-ray counts equal on every lane), and the BVH2 walk of
-     bvh/traverse.py (prim and occlusion on >= 99.99% of lanes); CUDA-event
-     times of kernel and plain version, Grays/s, and the bound computed from
-     the BVH2 walk's counts;
+  2. [scene] the full bathroom (129,252 triangles, 21 instances of 20
+     meshes) synced three ways: single-level over all world triangles with
+     the numpy builder (the port's tree before the two-level default)
+     and with the native one,
+     then the default HostScene.sync, the two-level tree (a TLAS over
+     native per-mesh BLASes); for each, BVH2 and BVH4 nodes, depths and MB,
+     and the host seconds by step (pose, BLAS builds, compose, tables,
+     textures, BVH4 pack, upload). Every later phase runs on the default
+     tree. [kernels] both trace kernels on the default tree for the 512x512
+     primary rays, the bounce-1 rays of one shade_bounce and that bounce's
+     NEE shadow batch, against two references: their plain version, the
+     BVH4 walk of bvh/wide.py (t, prim, u, v, occlusion and the per-ray
+     counts equal on every lane), and the BVH2 walk of bvh/traverse.py (prim
+     and occlusion on >= 99.99% of lanes); CUDA-event times of kernel and
+     plain version, Grays/s, and the bound computed from the BVH2 walk's
+     counts; then both kernels' times on the numpy single-level tree for
+     the same three batches;
   3. the main path: bathroom 512x512, path 16, path regeneration, through
      render_pass — 1 warm-up and 3 timed passes; Mrays/s (extension +
      shadow rays), per-bounce ray counts, peak memory, the image; each
@@ -52,7 +61,22 @@ Phases; any failure exits non-zero before the result line is printed:
      the CPU (GRAD_RTOL);
   7. [golden] utils/golden.py render_golden on the card and on the CPU:
      >= 99% of pixels within rtol 1e-3 / atol 1e-4 of each other, and both
-     means and population stds within 1e-3 of ANCHOR_MEAN / ANCHOR_STD.
+     means and population stds within 1e-3 of ANCHOR_MEAN / ANCHOR_STD;
+  8. [anim] tools/anim_gltf.py writes an animated glTF into a temporary
+     directory under build/ (a tube of 65,536 triangles skinned to three
+     joints with a LINEAR and a CUBICSPLINE rotation channel, a sphere of
+     16,384 triangles with a morph target and a weights channel, a rigid
+     box with a translation channel and a PNG texture); HostScene.load_gltf
+     places it in the bathroom (211,184 triangles), rendered at 512x512,
+     path 16, regen, Lambert through RenderAPI on the card: 1 warm-up and
+     ANIM_FRAMES frames of anim.update(scene, 1/30) + api.render(
+     converge=False). Per frame: host seconds of the update and of the sync
+     by step, render ms, Mrays/s, the build_stats deltas (2 BLAS builds,
+     the two posed meshes, and 1 compose) and 16 + 16 kernel launches; on
+     the last frame both kernels equal their plain BVH4 walk on every lane
+     of its three batches; the image finite with mean > 0;
+  9. [cli] apps/render_cli.main on that glTF at 256x256, 2 spp, on the
+     card: returns 0 and writes a PNG that reads back at (256, 256, 3).
 It then prints one JSON line of per-kernel numbers, the card's name and
 power limit, and last the result line {"ok": true, "device": {...}}.
 """
@@ -61,8 +85,10 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 KERNEL_ITERS = 20          # timed launches per kernel and batch
@@ -86,6 +112,11 @@ GRAD_RTOL = dict(color=1e-3, light=1e-3, offset=2e-2)
 # between card and CPU; a CPU run with the vertices moved by 1e-7 agrees with
 # the unmoved one on 93.5% of them (cpu_jitter_pixels_agree)
 DISNEY_PIXELS_MIN = 0.9
+ANIM_FRAMES = 8            # timed frames of [anim]
+ANIM_DT = 1.0 / 30.0       # seconds of animation a frame
+# where [anim] places the glTF in the bathroom: on the floor, in view
+ANIM_XF = ((1.0, 0.0, 0.0, -0.3), (0.0, 1.0, 0.0, 0.0),
+           (0.0, 0.0, 1.0, -0.2), (0.0, 0.0, 0.0, 1.0))
 
 
 def _sh(cmd):
@@ -708,15 +739,192 @@ def golden_check(dev):
     return res
 
 
+def scene_trees(host, dev):
+    """Phase 2, [scene]: the bathroom synced single-level (numpy, native)
+    and then by default (two-level). Returns {tree: DeviceScene}; the
+    default sync is last, so the host's cached scene is the default."""
+    from lighthouse2_tpu_torch.bvh.wide import check_depth4
+
+    out = {}
+    for name, kw in (("single_level_numpy", dict(two_level=False,
+                                                 native=False)),
+                     ("single_level_native", dict(two_level=False)),
+                     ("two_level", {})):
+        before = dict(host.build_stats)
+        t0 = time.perf_counter()
+        ds = host.sync(dev, **kw)
+        wall = time.perf_counter() - t0
+        b = ds.bvh
+        mb = lambda *xs: sum(x.numel() * x.element_size() for x in xs) / 1e6
+        res = dict(
+            triangles=ds.tris.count, nodes=int(b.nbox.shape[1]),
+            depth=b.depth, nodes4=int(b.node4.shape[0]), depth4=b.depth4,
+            bvh2_mb=mb(b.nbox, b.left, b.right, b.count, b.prim),
+            node4_mb=mb(b.node4), tri4_mb=mb(b.tri4), sync_seconds=wall,
+            host_seconds=dict(host.sync_seconds),
+            build_stats={k: host.build_stats[k] - before[k] for k in before})
+        print(f"[scene] {name}: " + json.dumps(res), flush=True)
+        check_depth4(b.depth4)
+        out[name] = ds
+    return out
+
+
+def time_kernels(scene, ref_scene, view, cfg, dev, iters):
+    """CUDA-event ms of both kernels on `scene`'s tree for the three
+    batches of `ref_scene` (the same triangles), and the share of lanes
+    whose closest t equals the kernel's on `ref_scene`'s tree."""
+    from lighthouse2_tpu_torch.render.kernels.trace import (
+        trace_closest, trace_occluded)
+
+    out = {}
+    for name, (o, d, tmax) in trace_batches(ref_scene, view, cfg, dev).items():
+        t = trace_closest(o, d, tmax, scene.bvh)[0]
+        t_ref = trace_closest(o, d, tmax, ref_scene.bvh)[0]
+        out[name] = dict(
+            closest_ms=_time_ms(lambda: trace_closest(o, d, tmax, scene.bvh),
+                                iters, dev),
+            occluded_ms=_time_ms(
+                lambda: trace_occluded(o, d, tmax, scene.bvh), iters, dev),
+            t_match=(t == t_ref).float().mean().item())
+    return out
+
+
+def kernels_equal_plain(scene, view, cfg, dev):
+    """Both kernels against their plain BVH4 walk on the three batches of
+    this scene: t, prim, u, v and occlusion equal on every lane."""
+    import torch
+    from lighthouse2_tpu_torch.bvh.wide import wide_intersect, wide_occluded
+    from lighthouse2_tpu_torch.render.kernels.trace import (
+        trace_closest, trace_occluded)
+
+    res = {}
+    for name, (o, d, tmax) in trace_batches(scene, view, cfg, dev).items():
+        got = trace_closest(o, d, tmax, scene.bvh)
+        want = wide_intersect(o, d, scene.bvh, t_max=tmax)
+        lanes = [g == w for g, w in zip(got, want)] + [
+            trace_occluded(o, d, tmax, scene.bvh)
+            == wide_occluded(o, d, tmax, scene.bvh)]
+        res[name] = torch.stack(lanes).all(0).float().mean().item()
+    if any(v != 1.0 for v in res.values()):
+        raise AssertionError(f"kernel and plain BVH4 walk differ: {res}")
+    return res
+
+
+def anim_path(cfg, dev, frames, directory, sizes=()):
+    """Phase 8: the animated glTF in the bathroom through RenderAPI.
+    `sizes` are write_anim_gltf's size arguments (default: full size).
+    Returns the numbers."""
+    import numpy as np
+    import torch
+    from lighthouse2_tpu_torch.api import RenderAPI
+    from lighthouse2_tpu_torch.scene.bench_scene import bathroom
+    from lighthouse2_tpu_torch.tools.anim_gltf import write_anim_gltf
+
+    t0 = time.perf_counter()
+    path = write_anim_gltf(directory, *sizes)
+    write_s = time.perf_counter() - t0
+    api = RenderAPI.create("wavefront", cfg, device=dev)
+    api.scene, api.camera = bathroom(cfg.width, cfg.height)
+    t0 = time.perf_counter()
+    api.scene.load_gltf(path, transform=np.asarray(ANIM_XF, np.float32))
+    load_s = time.perf_counter() - t0
+    scene = api.scene
+    anim = scene.animations[0]
+    out = dict(write_seconds=write_s, load_seconds=load_s, frames=[])
+    for i in range(frames + 1):                  # frame 0 is the warm-up
+        stats0, counts0 = dict(scene.build_stats), _counts()
+        t0 = time.perf_counter()
+        anim.update(scene, ANIM_DT)
+        t1 = time.perf_counter()
+        st = api.render(converge=False)
+        t2 = time.perf_counter()
+        counts = _counts()
+        fr = dict(
+            frame=i, anim_time=anim.time, update_seconds=t1 - t0,
+            sync_seconds=dict(scene.sync_seconds),
+            sync_total_seconds=sum(scene.sync_seconds.values()),
+            render_ms=st["render_time"] * 1e3, wall_ms=(t2 - t0) * 1e3,
+            mrays_per_s=st["mrays_per_s"], rays=st["total_rays"],
+            build_stats={k: scene.build_stats[k] - stats0[k]
+                         for k in stats0},
+            launches={k: counts[k] - counts0[k] for k in counts})
+        print("[anim] " + json.dumps(fr), flush=True)
+        if i:
+            out["frames"].append(fr)
+    # the posing functions alone, on the frame's pose (host seconds)
+    from lighthouse2_tpu_torch.scene.host_scene import _apply_morph, _apply_skin
+    for mesh_id, _, node in scene.flatten_instances():
+        mesh = scene.meshes[mesh_id]
+        if node.skin_id >= 0:
+            t0 = time.perf_counter()
+            _apply_skin(mesh, scene, node)
+            out["skin_seconds"] = time.perf_counter() - t0
+            out["skin_vertices"] = int(mesh.base_vertices.shape[0])
+        elif node.morph_weights is not None and mesh.morph_targets:
+            t0 = time.perf_counter()
+            _apply_morph(mesh, np.asarray(node.morph_weights, np.float32))
+            out["morph_seconds"] = time.perf_counter() - t0
+            out["morph_vertices"] = int(mesh.base_vertices.shape[0])
+    ds = api.device_scene()
+    img = api.get_image()
+    out.update(
+        triangles=ds.tris.count, nodes=int(ds.bvh.nbox.shape[1]),
+        depth=ds.bvh.depth, depth4=ds.bvh.depth4,
+        lanes_equal_plain=kernels_equal_plain(
+            ds, api.camera.get_view(dev), cfg, dev),
+        image_mean=float(img.mean()), image_finite=bool(np.isfinite(img).all()))
+    fs = out["frames"]
+    mean = lambda k: sum(f[k] for f in fs) / len(fs)
+    out.update(mean_render_ms=mean("render_ms"), mean_wall_ms=mean("wall_ms"),
+               mean_sync_seconds=mean("sync_total_seconds"),
+               mean_mrays_per_s=mean("mrays_per_s"),
+               mean_sync_split={k: sum(f["sync_seconds"][k] for f in fs)
+                                / len(fs) for k in fs[0]["sync_seconds"]})
+    print("[anim] " + json.dumps({k: v for k, v in out.items()
+                                  if k != "frames"}), flush=True)
+    want_launch = {k: cfg.max_path_length for k in _counts()}
+    for f in fs:
+        if f["launches"] != want_launch:
+            raise AssertionError(f"each kernel must launch "
+                                 f"{cfg.max_path_length} times a frame: {f}")
+        if f["build_stats"] != dict(blas_builds=2, tlas_composes=1):
+            raise AssertionError("an animated frame must rebuild the two "
+                                 f"posed BLASes and compose once: {f}")
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    if not (out["image_finite"] and out["image_mean"] > 0):
+        raise AssertionError("the animated frame is not finite and positive")
+    return out
+
+
+def cli_check(gltf, out_png, size=256):
+    """Phase 9: the render CLI on the card; returns its numbers."""
+    from lighthouse2_tpu_torch.apps import render_cli
+    from lighthouse2_tpu_torch.utils.image import read_png
+
+    t0 = time.perf_counter()
+    rc = render_cli.main([gltf, "-o", out_png, "--size", str(size), "--spp",
+                          "2", "--spp-per-pass", "1", "--sky", "0.8,0.8,0.8"])
+    res = dict(rc=rc, seconds=time.perf_counter() - t0)
+    if rc != 0:
+        raise AssertionError(f"render_cli returned {rc}")
+    img = read_png(out_png)
+    res.update(shape=list(img.shape), mean=float(img.mean()))
+    print("[cli] " + json.dumps(res), flush=True)
+    if img.shape != (size, size, 3) or not img.max() > 0:
+        raise AssertionError(f"render_cli wrote {img.shape}, max {img.max()}")
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     try:
-        from lighthouse2_tpu_torch.bvh.wide import pack_wide
         from lighthouse2_tpu_torch.core.types import RenderConfig
-        from lighthouse2_tpu_torch.render.kernels.trace import build_library
+        from lighthouse2_tpu_torch.render.kernels.trace import (
+            BUILD_DIR, build_library)
         from lighthouse2_tpu_torch.scene.bench_scene import bathroom
     except ImportError as e:
         print(f"chip_smoke: run from the repository root ({e})",
@@ -742,26 +950,24 @@ def main() -> int:
     size, path_len = 512, 16
     cfg = RenderConfig(width=size, height=size, spp_per_pass=1,
                        max_path_length=path_len, use_bvh=True, path_regen=True)
-    t0 = time.perf_counter()
     host, cam = bathroom(size, size)
-    scene = host.sync(dev)
+    trees = scene_trees(host, dev)
+    scene = trees["two_level"]
     view = cam.get_view(dev)
-    sync_s = time.perf_counter() - t0
-    b = scene.bvh
-    t0 = time.perf_counter()
-    pack_wide(*(x.cpu().numpy() for x in (b.nbox, b.left, b.right, b.count,
-                                          b.prim, b.tri9)), b.max_leaf)
-    collapse_s = time.perf_counter() - t0
+    b, single = scene.bvh, trees["single_level_numpy"].bvh
     print(f"[scene] bathroom: {scene.tris.count} triangles, "
-          f"{b.nbox.shape[1]} BVH2 nodes (depth {b.depth}) collapsed into "
-          f"{b.node4.shape[0]} BVH4 nodes (depth {b.depth4}; "
-          f"{b.node4.numel() * 4 / 1e6:.2f} MB of nodes, "
-          f"{b.tri4.numel() * 4 / 1e6:.2f} MB of triangles), "
-          f"{scene.materials.count} materials; built and uploaded in "
-          f"{sync_s:.1f} s, of which the BVH4 collapse and packing "
-          f"{collapse_s:.3f} s on the host", flush=True)
+          f"{scene.materials.count} materials; default two-level tree "
+          f"{b.nbox.shape[1]} BVH2 nodes (depth {b.depth}) in "
+          f"{b.node4.shape[0]} BVH4 nodes (depth {b.depth4}); single-level "
+          f"numpy tree {single.nbox.shape[1]} (depth {single.depth}) in "
+          f"{single.node4.shape[0]} (depth {single.depth4})", flush=True)
 
     kern = check_kernels(scene, view, cfg, dev, KERNEL_ITERS, PLAIN_ITERS)
+    single_ms = time_kernels(trees["single_level_numpy"], scene, view, cfg,
+                             dev, KERNEL_ITERS)
+    del trees
+    print("[kernels] single-level numpy tree, same batches: "
+          + json.dumps(single_ms), flush=True)
     main_res, state = main_path(scene, view, cfg, dev, passes=3)
     print(f"[main] {main_res['mrays_per_s']:.3f} Mrays/s on {card} "
           f"(bathroom {size}x{size}, path {path_len}, regen)", flush=True)
@@ -795,10 +1001,24 @@ def main() -> int:
     grad_reference_check(dev, disney=True)
     golden_check(dev)
 
+    anim_dir = tempfile.mkdtemp(prefix="chip_smoke_anim_", dir=BUILD_DIR)
+    try:
+        anim = anim_path(cfg, dev, ANIM_FRAMES, anim_dir)
+        print(f"[anim] {anim['triangles']} triangles, {ANIM_FRAMES} frames: "
+              f"{anim['mean_render_ms']:.1f} ms render + "
+              f"{anim['mean_sync_seconds'] * 1e3:.1f} ms host sync a frame, "
+              f"{anim['mean_mrays_per_s']:.3f} Mrays/s in the render on "
+              f"{card}", flush=True)
+        cli_check(os.path.join(anim_dir, "anim.gltf"),
+                  os.path.join(anim_dir, "cli.png"))
+    finally:
+        shutil.rmtree(anim_dir, ignore_errors=True)
+
     rows = []
-    for name, batch, line, sym in (
-            ("trace_closest", "bounce1", 229, "closest_kernel"),
-            ("trace_occluded", "shadow", 414, "occluded_kernel")):
+    for name, batch, line, sym, key in (
+            ("trace_closest", "bounce1", 229, "closest_kernel", "closest_ms"),
+            ("trace_occluded", "shadow", 414, "occluded_kernel",
+             "occluded_ms")):
         k = kern[name][batch]
         rows.append(dict(
             name=name, route="cuda", source="lighthouse2_tpu_torch/csrc/trace.cu",
@@ -808,10 +1028,15 @@ def main() -> int:
             launches_disney_per_pass=disney_res["launches"][name]
             // DISNEY_PASSES,
             launches_disney_fwd_bwd_step=disney_train["launches"][name],
+            launches_anim_per_frame=[f["launches"][name]
+                                     for f in anim["frames"]],
             main_path_ms_per_launch=dict(
                 lambert=lambert_prof["kernel_ms_per_launch"][sym],
                 disney=disney_prof["kernel_ms_per_launch"][sym]),
             max_abs_err=k["max_abs_err"],
+            ms_by_batch={bt: kern[name][bt]["ms"] for bt in kern[name]},
+            single_level_ms={bt: single_ms[bt][key]
+                             for bt in single_ms},
             ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
             bound_by=k["bound_by"], library_ms=None))
     print(json.dumps({"kernels": rows}))

@@ -11,8 +11,8 @@ loop (rendersystem.cpp:214-301):
 
 Differences: create takes a `device` (default: the card, raising without
 one; "cpu" runs the plain versions on the host; see device.resolve_device)
-and the scene is synced to it with scene.sync(device); probe and material
-(de)serialisation are not ported yet.
+and the scene is synced to it with scene.sync(device); probe is not ported
+yet.
 """
 from __future__ import annotations
 
@@ -90,6 +90,18 @@ class RenderAPI:
             self.camera = Camera.deserialize(path)
         except FileNotFoundError:
             pass
+
+    def serialize_materials(self, path):
+        """RenderAPI::SerializeMaterials (render_api.h / main.cpp:273)."""
+        self.scene.serialize_materials(path)
+
+    def deserialize_materials(self, path):
+        """RenderAPI::DeserializeMaterials (main.cpp:67): the number of
+        materials matched by name; 0 when the file does not exist."""
+        try:
+            return self.scene.deserialize_materials(path)
+        except FileNotFoundError:
+            return 0
 
     def set_setting(self, name: str, value):
         self.core.setting(name, value)

@@ -1,8 +1,12 @@
 """Binned-SAH BVH2 builder, level-synchronous and vectorized in numpy.
 
-Copy of lighthouse2_tpu/bvh/builder.py (build_sah_bvh_numpy and its
-flattening), plus bvh_depth. The port always uses this numpy builder; the
-native C++ builder and the two-level TLAS composition are not ported yet.
+Copy of lighthouse2_tpu/bvh/builder.py (build_sah_bvh, build_sah_bvh_numpy
+and its flattening), plus bvh_depth. build_sah_bvh picks the native C++
+builder (native/) or the numpy one by its `native` argument; the JAX
+package prefers the native one and falls back to numpy silently when it
+cannot build it or LH2_NO_NATIVE is set, the port raises instead and reads
+no environment. The two builders break ties differently, so they can build
+different trees over the same triangles.
 
 Flattened layout (depth-first, left child first):
     nmin, nmax   [N,3] float32   node bounds
@@ -21,6 +25,16 @@ _INF = np.float32(np.inf)
 def _half_area(bmin, bmax):
     e = np.maximum(bmax - bmin, 0.0)
     return e[..., 0] * e[..., 1] + e[..., 1] * e[..., 2] + e[..., 2] * e[..., 0]
+
+
+def build_sah_bvh(v0, v1, v2, max_leaf=4, bins=8, native=True) -> dict:
+    """Build a BVH2 over triangles (v0, v1, v2 [T,3]); returns the flat
+    dict. native=True: the C++ builder (raises if it cannot be built);
+    native=False: the numpy builder."""
+    if native:
+        from lighthouse2_tpu_torch.native import build_sah_bvh_native
+        return build_sah_bvh_native(v0, v1, v2, max_leaf=max_leaf, bins=bins)
+    return build_sah_bvh_numpy(v0, v1, v2, max_leaf=max_leaf, bins=bins)
 
 
 def build_sah_bvh_numpy(v0, v1, v2, max_leaf=4, bins=8):

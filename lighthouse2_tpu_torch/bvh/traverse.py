@@ -59,10 +59,10 @@ class DeviceBVH:
     depth4: int = 0       # BVH4 root-to-leaf edges, measured at upload
 
 
-def device_bvh_from_flat(flat: dict, v0, v1, v2, device,
-                         max_leaf: int = 4) -> DeviceBVH:
-    """Upload a builder.py flat dict in the traversal layout: the BVH2
-    arrays and the BVH4 collapsed and packed from them."""
+def pack_flat(flat: dict, v0, v1, v2, max_leaf: int = 4) -> dict:
+    """The host half of device_bvh_from_flat: the BVH2 arrays in the
+    traversal layout, the BVH4 collapsed and packed from them, and both
+    depths, as numpy arrays and ints."""
     nbox = np.concatenate([flat["nmin"].T, flat["nmax"].T], 0).astype(np.float32)
     v0 = np.asarray(v0, np.float32)
     e1 = np.asarray(v1, np.float32) - v0
@@ -70,12 +70,25 @@ def device_bvh_from_flat(flat: dict, v0, v1, v2, device,
     tri9 = np.concatenate([v0.T, e1.T, e2.T], 0).astype(np.float32)
     wide = pack_wide(nbox, flat["left"], flat["right"], flat["count"],
                      flat["prim"], tri9, max_leaf)
+    return dict(nbox=nbox, left=flat["left"], right=flat["right"],
+                count=flat["count"], prim=flat["prim"], tri9=tri9,
+                node4=wide["node4"], tri4=wide["tri4"], depth=bvh_depth(flat),
+                depth4=wide["depth4"], max_leaf=max_leaf)
+
+
+def upload_bvh(packed: dict, device) -> DeviceBVH:
+    """The device half of device_bvh_from_flat: pack_flat's arrays as
+    tensors on `device`."""
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
-    return DeviceBVH(nbox=t(nbox), left=t(flat["left"]), right=t(flat["right"]),
-                     count=t(flat["count"]), prim=t(flat["prim"]), tri9=t(tri9),
-                     node4=t(wide["node4"]), tri4=t(wide["tri4"]),
-                     max_leaf=max_leaf, depth=bvh_depth(flat),
-                     depth4=wide["depth4"])
+    return DeviceBVH(**{k: (v if isinstance(v, int) else t(v))
+                        for k, v in packed.items()})
+
+
+def device_bvh_from_flat(flat: dict, v0, v1, v2, device,
+                         max_leaf: int = 4) -> DeviceBVH:
+    """Upload a builder.py flat dict in the traversal layout: the BVH2
+    arrays and the BVH4 collapsed and packed from them."""
+    return upload_bvh(pack_flat(flat, v0, v1, v2, max_leaf), device)
 
 
 def check_depth(bvh: DeviceBVH) -> None:

@@ -1,13 +1,19 @@
-"""Host-side textures: sRGB->linear, MIP chain, device pool.
+"""Host-side textures: loading, sRGB->linear, MIP chain, device pool.
 
-Counterpart of lighthouse2_tpu/scene/host_texture.py (HostTexture,
-build_texture_pool). No image-file loading yet; build_texture_pool returns
-the port's DeviceTextures on a torch device.
+Counterpart of lighthouse2_tpu/scene/host_texture.py (HostTexture with
+load and its .lh2c.npz side-cache, _read_ppm, build_texture_pool).
+Differences: HostTexture.load takes only its `cache` argument (the JAX
+package also reads LH2_NO_TEXCACHE); build_texture_pool returns the port's
+DeviceTextures on a torch device.
 """
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
+
+from lighthouse2_tpu_torch.utils import image as im
 
 MIP_LEVELS = 5  # common_settings.h:50
 
@@ -39,6 +45,55 @@ class HostTexture:
             m[:, :, 3] = c[:, :, :, :, 3].min(axis=(1, 3))
             self.mips.append(m.astype(np.float32))
         self.name = name
+
+    @staticmethod
+    def load(path: str, srgb: bool = True, cache: bool = True) -> "HostTexture":
+        """Load with a binary side-cache: the decoded, linearised and MIPped
+        texels are stored next to the source as `<path>.lh2c.npz`, keyed by
+        the source's mtime (host_texture.cpp CACHEIMAGES). cache=False
+        decodes afresh and writes no cache."""
+        cpath = path + ".lh2c.npz"
+        key = None
+        if cache:
+            try:
+                key = np.array([os.path.getmtime(path), float(srgb),
+                                float(MIP_LEVELS)], np.float64)
+                with np.load(cpath) as z:
+                    if np.array_equal(z["key"], key):
+                        tex = HostTexture.__new__(HostTexture)
+                        tex.mips = [z[f"mip{i}"] for i in range(MIP_LEVELS)]
+                        tex.name = path
+                        return tex
+            except (OSError, KeyError, ValueError):
+                pass
+        ext = os.path.splitext(path)[1].lower()
+        if ext == ".png":
+            tex = HostTexture(im.read_png(path), name=path, srgb=srgb)
+        elif ext in (".jpg", ".jpeg"):
+            tex = HostTexture(im.read_jpeg(path), name=path, srgb=srgb)
+        elif ext == ".hdr":
+            tex = HostTexture(im.read_hdr(path), name=path, srgb=False)
+        elif ext in (".ppm", ".pgm"):
+            tex = HostTexture(_read_ppm(path), name=path, srgb=srgb)
+        else:
+            raise ValueError(f"unsupported texture format: {path}")
+        if cache and key is not None:
+            try:
+                np.savez(cpath, key=key,
+                         **{f"mip{i}": m for i, m in enumerate(tex.mips)})
+            except OSError:
+                pass                      # read-only asset dir: no cache
+        return tex
+
+
+def _read_ppm(path):
+    with open(path, "rb") as f:
+        data = f.read()
+    tok = data.split(maxsplit=4)
+    assert tok[0] in (b"P6", b"P5"), "only binary PPM/PGM"
+    w, h = int(tok[1]), int(tok[2])
+    ch = 3 if tok[0] == b"P6" else 1
+    return np.frombuffer(tok[4][: w * h * ch], np.uint8).reshape(h, w, ch)
 
 
 def build_texture_pool(textures: list, device):

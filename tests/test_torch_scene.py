@@ -1,8 +1,10 @@
 """The port's host scene and upload against the JAX package's sync().
 
-HostScene.sync in lighthouse2_tpu_torch builds the single-level numpy BVH,
-which is the JAX package's sync(two_level=False) with the native builder off
-(LH2_NO_NATIVE=1). Every uploaded array must be equal. The carry-across
+HostScene.sync(two_level=False, native=False) in lighthouse2_tpu_torch
+builds the single-level numpy BVH, which is the JAX package's
+sync(two_level=False) with the native builder off (LH2_NO_NATIVE=1). Every
+uploaded array must be equal. (The default two-level sync over native
+BLASes is held to the JAX default in test_torch_tlas.py.) The carry-across
 (convert.scene_from_numpy) must reproduce the JAX scene exactly too.
 
 `jax_scene_arrays` is the flattening the other test_torch_* files use to
@@ -80,7 +82,7 @@ def test_sync_matches_jax_single_level(scene, monkeypatch):
     else:
         jds, _ = jax_sync(jbench.bathroom, monkeypatch, 64, 64, detail=0)
         host, _ = tbench.bathroom(64, 64, detail=0)
-    ds = host.sync(device="cpu")
+    ds = host.sync(device="cpu", two_level=False, native=False)
     n = assert_scene_equal(ds, jax_scene_arrays(jds))
     assert n >= 70
     assert ds.bvh.depth + 2 <= 64
@@ -95,7 +97,7 @@ def test_scene_from_numpy_round_trip(monkeypatch):
         np.testing.assert_array_equal(getattr(view, f.name).numpy(),
                                       arrays[f"view.{f.name}"])
     host, cam = tpresets.cornell_box(32, 32)
-    ref = host.sync(device="cpu")
+    ref = host.sync(device="cpu", two_level=False, native=False)
     assert ds.bvh.depth == ref.bvh.depth
     pview = cam.get_view("cpu")
     for f in dataclasses.fields(view):

@@ -18,9 +18,10 @@ tables HostScene.sync uploads) against the JAX package's.
     area-light slot equal on every lane, values within rtol 1e-5 (atol
     1e-5 for the points, which lie 1000 units out along a sky sample;
     1e-7 for the probabilities) on at least 99.9% of lanes;
-  - HostScene.set_sky + sync("cpu") upload the same scene, sky tables
-    included, as the JAX package's sync(two_level=False) with
-    LH2_NO_NATIVE=1; a colour becomes a 1x1 sky without tables.
+  - HostScene.set_sky + sync("cpu", two_level=False, native=False) upload
+    the same scene, sky tables included, as the JAX package's
+    sync(two_level=False) with LH2_NO_NATIVE=1; a colour becomes a 1x1 sky
+    without tables.
 JAX functions are compiled at XLA's backend optimisation level 0.
 """
 import jax
@@ -207,7 +208,7 @@ def test_light_sampling_with_the_sky_matches_jax(monkeypatch):
 def test_set_sky_and_sync_upload_the_jax_tables(monkeypatch):
     jds, _ = jax_sync(lambda: _with_test_sky(jpresets), monkeypatch)
     host, _ = _with_test_sky(tpresets)
-    ds = host.sync("cpu")
+    ds = host.sync("cpu", two_level=False, native=False)
     assert ds.sky.has_ibl and ds.sky.pdf.shape == (8, 16)
     assert ds.sky.nee_energy.shape == ()
     assert_scene_equal(ds, jax_scene_arrays(jds))
@@ -221,7 +222,8 @@ def test_set_sky_and_sync_upload_the_jax_tables(monkeypatch):
         np.testing.assert_array_equal(getattr(tsk, f).numpy(),
                                       np.asarray(getattr(jsk, f)), err_msg=f)
     jds1, _ = jax_sync(jpresets.single_triangle, monkeypatch, 16, 16)
-    ds1 = tpresets.single_triangle(16, 16)[0].sync("cpu")
+    ds1 = tpresets.single_triangle(16, 16)[0].sync("cpu", two_level=False,
+                                                   native=False)
     assert not ds1.sky.has_ibl and ds1.sky.pdf is None
     assert_scene_equal(ds1, jax_scene_arrays(jds1))
 
