@@ -76,7 +76,36 @@ Phases; any failure exits non-zero before the result line is printed:
      the last frame both kernels equal their plain BVH4 walk on every lane
      of its three batches; the image finite with mean > 0;
   9. [cli] apps/render_cli.main on that glTF at 256x256, 2 spp, on the
-     card: returns 0 and writes a PNG that reads back at (256, 256, 3).
+     card: returns 0 and writes a PNG that reads back at (256, 256, 3);
+ 10. [filter] the bathroom 512x512 through RenderAPI.create(
+     "wavefront_filter") (classic executor, spp 1, path 16, Lambert, TAA):
+     1 warm-up and FILTER_FRAMES frames, the camera moving FILTER_MOVE and
+     turning FILTER_TURN a frame; per frame the ms of render_pass and of
+     the filter (SVGF + TAA + unsharpen), each closed by a synchronize, the
+     launches of each kernel (must equal the bounces with a live lane), the
+     share of pixels whose history survived reprojection (must be > 0),
+     the image (finite); peak memory; a profiled frame; the filter alone on
+     one pass's G-buffers (ms, device ms and launches); the last filtered
+     frame must be smoother than a raw 1-spp frame of the same view
+     (variance of neighbour differences);
+ 11. [filter reference] a 64x64 Cornell box through "wavefront_filter", 4
+     frames with a moving camera, on the card and on the CPU: >= 99% of
+     pixels within rtol / atol 1e-3 every frame;
+ 12. [probe] on the bathroom at 512x512: bvh_heatmap (one closest launch;
+     its counts equal the plain BVH4 walk's on every lane), probe_pixel on
+     a 4x4 grid through the kernel (one launch a pixel) and by brute force
+     (the same prim but for t-ties within 1e-5), gbuffer_views (a
+     [1024, 1024, 3] mosaic in [0, 1]), bvh_print, and a 64x64 Cornell
+     render through RenderAPI with use_bvh=False (no kernel launch) against
+     the BVH render (>= 99% of pixels within rtol 1e-3);
+ 13. [viewer] a ViewerSession on the bathroom at 256x256 running
+     VIEWER_SCRIPT (frames, probe, mat, snap, move, turn, the three debug
+     views, camera save / load, materials save): every frame and debug
+     file written, and the FrameServer on 127.0.0.1 returns the last
+     frame's PNG bytes and the stats, fetched with urllib;
+ 14. [ai] apps/ai_debugger_cli.main with its Cornell defaults on the card:
+     returns 0, writes a 256x256 PNG; its navmesh arrays and its navmesh,
+     path and agent lines equal a CPU run's.
 It then prints one JSON line of per-kernel numbers, the card's name and
 power limit, and last the result line {"ok": true, "device": {...}}.
 """
@@ -117,6 +146,12 @@ ANIM_DT = 1.0 / 30.0       # seconds of animation a frame
 # where [anim] places the glTF in the bathroom: on the floor, in view
 ANIM_XF = ((1.0, 0.0, 0.0, -0.3), (0.0, 1.0, 0.0, 0.0),
            (0.0, 0.0, 1.0, -0.2), (0.0, 0.0, 0.0, 1.0))
+FILTER_FRAMES = 8          # timed frames of [filter]
+FILTER_MOVE = (0.01, 0.0, 0.005)   # camera translation a frame (metres)
+FILTER_TURN = 0.5          # camera yaw a frame (degrees)
+# share of the 64x64 filtered Cornell pixels within rtol / atol 1e-3 of the
+# CPU's, every frame (as [reference])
+FILTER_PIXELS_MIN = 0.99
 
 
 def _sh(cmd):
@@ -163,7 +198,7 @@ def trace_batches(scene, view, cfg, dev):
     paths, depth, _ = wf.make_regen_pool(view, cfg)
     n = depth.shape[0]
     t, prim, u, v = wf._intersect(scene, paths["origin"], paths["dir"],
-                                  paths["alive"])
+                                  paths["alive"], cfg)
     acc = torch.zeros((n, 4), dtype=torch.float32, device=dev)
     paths1, _, _, shadow = wf.shade_bounce(scene, view, cfg, paths, acc,
                                            CAM_RNG_SEED, depth, t, prim, u, v)
@@ -347,6 +382,7 @@ def _profile(fn, dev, tag):
                   / max(sum(r[2] for r in rows if k in r[1]), 1)
                   for k in kernels}
     res = dict(wall_ms=wall * 1e3, device_ms=total / 1e3,
+               device_launches=sum(r[2] for r in rows),
                device_busy_share=total / 1e3 / (wall * 1e3),
                kernel_share_of_device=share,
                kernel_ms_per_launch=per_launch,
@@ -916,6 +952,386 @@ def cli_check(gltf, out_png, size=256):
     return res
 
 
+def _live_bounces(stats):
+    """Bounces of a classic pass that still had a live lane: each launches
+    each trace kernel once."""
+    import numpy as np
+    return int((np.asarray(stats["extension_per_bounce"]) > 0).sum())
+
+
+def _neighbour_var(img):
+    """Variance of vertical neighbour differences (tests/test_filter.py
+    :118-123): the noise measure a filtered frame must lower."""
+    import numpy as np
+    return float(np.var(np.diff(img, axis=0)))
+
+
+def filter_path(host, cam, dev, frames, size=512):
+    """Phase 10, [filter]: the bathroom through "wavefront_filter" (classic
+    executor, spp 1, path 16, Lambert, TAA) with the camera moving and
+    turning a little each frame; 1 warm-up + `frames` timed frames, one
+    profiled frame, the filter alone profiled and timed on one frame's
+    G-buffers, and a raw 1-spp frame of the last view. Returns the
+    numbers."""
+    import copy
+    import numpy as np
+    import torch
+    from lighthouse2_tpu_torch.api import RenderAPI
+    from lighthouse2_tpu_torch.apps.viewer_cli import _rotate
+    from lighthouse2_tpu_torch.core.types import RenderConfig
+    from lighthouse2_tpu_torch.render.filter import svgf_filter, taa, unsharpen
+    from lighthouse2_tpu_torch.render.wavefront import AccumState, render_pass
+
+    cfg = RenderConfig(width=size, height=size, spp_per_pass=1,
+                       max_path_length=16, taa_enabled=True)
+    api = RenderAPI.create("wavefront_filter", cfg, device=dev)
+    api.scene, api.camera = host, copy.deepcopy(cam)
+
+    def move():
+        c = api.camera
+        c.position = (np.asarray(c.position, np.float32)
+                      + np.float32(FILTER_MOVE))
+        c.direction = _rotate(c.direction, FILTER_TURN, 0.0)
+
+    t0 = time.perf_counter()
+    api.render()                                  # sync + warm-up frame
+    torch.cuda.synchronize(dev)
+    warm_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = dict(warmup_seconds=warm_s, frames=[])
+    for i in range(frames):
+        move()
+        before = _counts()
+        st = dict(api.render())
+        after = _counts()
+        img = api.get_image()
+        fr = dict(
+            frame=i + 1, pass_ms=st["pass_time"] * 1e3,
+            filter_ms=st["filter_time"] * 1e3, frame_ms=st["render_time"] * 1e3,
+            mrays_per_s=st["mrays_per_s"], live_bounces=_live_bounces(st),
+            launches={k: after[k] - before[k] for k in after},
+            history_share=(api.core.filter_state.history > 0).float()
+            .mean().item(),
+            image_finite=bool(np.isfinite(img).all()),
+            image_mean=float(img.mean()))
+        print("[filter] " + json.dumps(fr), flush=True)
+        out["frames"].append(fr)
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+    fs = out["frames"]
+    mean = lambda k: sum(f[k] for f in fs) / len(fs)
+    out.update(mean_pass_ms=mean("pass_ms"), mean_filter_ms=mean("filter_ms"),
+               mean_frame_ms=mean("frame_ms"),
+               min_history_share=min(f["history_share"] for f in fs))
+    filtered = api.get_image()
+
+    # the raw 1-spp frame of the same (unjittered) view
+    raw_api = RenderAPI.create("wavefront", dataclasses.replace(
+        cfg, taa_enabled=False), device=dev)
+    raw_api.scene, raw_api.camera = host, api.camera
+    raw_api.render()
+    out.update(filtered_neighbour_var=_neighbour_var(filtered),
+               raw_neighbour_var=_neighbour_var(raw_api.get_image()))
+
+    out["profile"] = _profile(lambda: (move(), api.render()), dev,
+                              "[filter profile] ")
+
+    # the filter alone, on one pass's G-buffers and the core's state
+    core = api.core
+    h, w = cfg.height, cfg.width
+    state, stats = render_pass(api.device_scene(), api.camera.get_view(dev),
+                               AccumState.make(core.config, dev), core.config)
+    aux = stats["filter_aux"]
+    im = lambda x: x.reshape(h, w, *x.shape[1:])
+    wp = im(aux["world_pos"])
+    args = (im(state.accumulator[:, :3]), im(aux["indirect"]),
+            im(aux["albedo"]), im(aux["normal"]), im(aux["depth"]), wp,
+            core.filter_state)
+
+    def run_filter():
+        c, _ = svgf_filter(*args, direct_clamp=cfg.clamp_direct,
+                           indirect_clamp=cfg.clamp_indirect,
+                           prev_view=core.prev_view)
+        c, _ = taa(c, core.taa_state, world_pos=wp, prev_view=core.prev_view)
+        return unsharpen(c)
+
+    prof = _profile(run_filter, dev, "[filter alone profile] ")
+    out["filter_alone"] = dict(
+        ms=_time_ms(run_filter, 5, dev), device_ms=prof["device_ms"],
+        device_launches=prof["device_launches"], wall_ms=prof["wall_ms"])
+    print("[filter] " + json.dumps({k: v for k, v in out.items()
+                                    if k not in ("frames", "profile")}),
+          flush=True)
+    for f in fs:
+        want = {k: f["live_bounces"] for k in f["launches"]}
+        if f["launches"] != want:
+            raise AssertionError("each kernel must launch once per bounce "
+                                 f"with a live lane: {f}")
+        if not f["image_finite"]:
+            raise AssertionError(f"filtered frame not finite: {f}")
+        if f["history_share"] <= 0.0:
+            raise AssertionError(f"no history survived reprojection: {f}")
+    if not out["filtered_neighbour_var"] < out["raw_neighbour_var"]:
+        raise AssertionError("the filtered frame is not smoother than the "
+                             "raw 1-spp frame: " + json.dumps(out))
+    return out
+
+
+def filter_reference(dev, frames=4):
+    """Phase 11, [filter reference]: "wavefront_filter" on a 64x64 Cornell
+    box with a moving camera, on the card and on the CPU."""
+    import numpy as np
+    import torch
+    from lighthouse2_tpu_torch.api import RenderAPI
+    from lighthouse2_tpu_torch.core.types import RenderConfig
+    from lighthouse2_tpu_torch.scene.presets import cornell_box
+
+    cfg = RenderConfig(width=64, height=64, spp_per_pass=1, max_path_length=4,
+                       taa_enabled=True)
+    out = {}
+    for where in (dev, torch.device("cpu")):
+        api = RenderAPI.create("wavefront_filter", cfg, device=where)
+        api.scene, api.camera = cornell_box(64, 64)
+        imgs, hist = [], []
+        for _ in range(frames):
+            api.camera.position = (api.camera.position
+                                   + np.float32([0.02, 0.01, 0.0]))
+            api.render()
+            imgs.append(api.get_image())
+            hist.append(api.core.filter_state.history.cpu().numpy())
+        out[where.type] = (imgs, hist)
+    (gi, gh), (ci, ch) = out[dev.type], out["cpu"]
+    res = dict(
+        pixels_close=[float(np.isclose(g, c, rtol=1e-3, atol=1e-3).all(-1)
+                            .mean()) for g, c in zip(gi, ci)],
+        history_equal=[float((g == c).mean()) for g, c in zip(gh, ch)],
+        mean_card=float(gi[-1].mean()), mean_cpu=float(ci[-1].mean()))
+    print("[filter reference] " + json.dumps(res), flush=True)
+    if min(res["pixels_close"]) < FILTER_PIXELS_MIN:
+        raise AssertionError("filtered frames: card and CPU disagree")
+    return res
+
+
+def probe_path(scene, cam, dev, size=512, grid=4):
+    """Phase 12, [probe] on the bathroom at 512x512: the heatmap (one
+    closest launch, its counts equal to the plain BVH4 walk's on every
+    lane), probe_pixel on a grid through the kernel and by brute force,
+    the G-buffer mosaic, bvh_print, and a 64x64 Cornell render without a
+    BVH against the BVH render."""
+    import numpy as np
+    import torch
+    from lighthouse2_tpu_torch.api import RenderAPI
+    from lighthouse2_tpu_torch.bvh.wide import wide_intersect
+    from lighthouse2_tpu_torch.core.geometry import BIG_T
+    from lighthouse2_tpu_torch.core.types import RenderConfig
+    from lighthouse2_tpu_torch.render import probe
+    from lighthouse2_tpu_torch.render.kernels.trace import trace_closest
+    from lighthouse2_tpu_torch.scene.presets import cornell_box
+
+    cfg = RenderConfig(width=size, height=size)
+    view = cam.get_view(dev)
+    res = {}
+    _zero_counts()
+    t0 = time.perf_counter()
+    heat = probe.bvh_heatmap(scene, view, cfg)
+    res["heatmap_seconds"] = time.perf_counter() - t0
+    res["launches_heatmap"] = _counts()
+    o, d = probe._pixel_rays(view, cfg)
+    kst = trace_closest(o, d, BIG_T, scene.bvh, stats=True)[4]
+    wst = wide_intersect(o, d, scene.bvh, stats=True)[4]
+    steps = wst[0].cpu().numpy().astype(np.float32)
+    res["heatmap_counts_equal"] = (kst == wst).all(0).float().mean().item()
+    res["heatmap_equal"] = bool(np.array_equal(
+        heat, probe._colormap(steps / max(steps.max(), 1.0)).reshape(
+            size, size, 3)))
+    res["mean_steps"] = float(steps.mean())
+
+    nb = dataclasses.replace(cfg, use_bvh=False)
+    rows, t_kernel, t_brute = [], 0.0, 0.0
+    _zero_counts()
+    for y in np.linspace(size / 32, size - 1 - size / 32, grid).astype(int):
+        for x in np.linspace(size / 32, size - 1 - size / 32,
+                             grid).astype(int):
+            t0 = time.perf_counter()
+            k = probe.probe_pixel(scene, view, cfg, int(x), int(y))
+            t1 = time.perf_counter()
+            b = probe.probe_pixel(scene, view, nb, int(x), int(y))
+            t2 = time.perf_counter()
+            t_kernel += t1 - t0
+            t_brute += t2 - t1
+            tie = (k["prim"] != b["prim"] and np.isfinite(k["distance"])
+                   and abs(k["distance"] - b["distance"])
+                   <= 1e-5 * k["distance"])
+            rows.append(dict(x=int(x), y=int(y), kernel=k["prim"],
+                             brute=b["prim"], t=k["distance"],
+                             t_brute=b["distance"], tie=bool(tie)))
+    res.update(launches_probe_grid=_counts(), probe_kernel_ms=t_kernel * 1e3
+               / len(rows), probe_brute_ms=t_brute * 1e3 / len(rows),
+               probe_hits=sum(r["kernel"] >= 0 for r in rows),
+               probe_ties=sum(r["tie"] for r in rows))
+    bad = [r for r in rows if r["kernel"] != r["brute"] and not r["tie"]]
+
+    _zero_counts()
+    t0 = time.perf_counter()
+    mosaic = probe.gbuffer_views(scene, view, cfg)
+    res.update(gbuffer_seconds=time.perf_counter() - t0,
+               gbuffer_shape=list(mosaic.shape),
+               gbuffer_min=float(mosaic.min()),
+               gbuffer_max=float(mosaic.max()),
+               launches_gbuffer=_counts())
+    tree = probe.bvh_print(scene)
+    print("[probe] " + tree.replace("\n", "\n[probe] "), flush=True)
+
+    # a small scene without a BVH, through RenderAPI, against the BVH one
+    imgs = {}
+    for use_bvh in (True, False):
+        api = RenderAPI.create("wavefront", RenderConfig(
+            width=64, height=64, spp_per_pass=1, max_path_length=4,
+            use_bvh=use_bvh), device=dev)
+        api.scene, api.camera = cornell_box(64, 64)
+        _zero_counts()
+        for _ in range(2):
+            api.render()
+        imgs[use_bvh] = (api.get_image(), _counts())
+    close = np.isclose(imgs[False][0], imgs[True][0], rtol=1e-3,
+                       atol=1e-4).all(-1)
+    res.update(no_bvh_pixels_close=float(close.mean()),
+               no_bvh_launches=imgs[False][1], bvh_launches=imgs[True][1])
+    print("[probe] " + json.dumps(dict(res, grid=rows)), flush=True)
+    if res["launches_heatmap"] != dict(trace_closest=1, trace_occluded=0):
+        raise AssertionError(f"the heatmap must launch the closest kernel "
+                             f"once: {res['launches_heatmap']}")
+    if res["heatmap_counts_equal"] != 1.0 or not res["heatmap_equal"]:
+        raise AssertionError("heatmap counts differ from the plain walk's")
+    if res["launches_probe_grid"] != dict(trace_closest=len(rows),
+                                          trace_occluded=0):
+        raise AssertionError("probe_pixel must launch the closest kernel "
+                             f"once a pixel: {res['launches_probe_grid']}")
+    if bad or res["probe_hits"] == 0:
+        raise AssertionError(f"kernel and brute-force probes differ: {bad}")
+    if (mosaic.shape != (2 * size, 2 * size, 3) or res["gbuffer_min"] < 0.0
+            or res["gbuffer_max"] > 1.0):
+        raise AssertionError(f"gbuffer_views: {mosaic.shape}, "
+                             f"[{res['gbuffer_min']}, {res['gbuffer_max']}]")
+    if not tree.startswith("BVH2") or "BVH4" not in tree:
+        raise AssertionError(f"bvh_print: {tree!r}")
+    if res["no_bvh_pixels_close"] < 0.99 or any(
+            imgs[False][1].values()):
+        raise AssertionError("the render without a BVH differs from the "
+                             "BVH render or launched a kernel")
+    return res
+
+
+VIEWER_SCRIPT = """\
+frames 2
+probe 128 160
+mat color 0.9 0.2 0.2
+snap
+move 0.05 0 0.05
+turn 3 1
+frames 1
+debug bvh
+debug gbuffer
+debug tree
+camera save {d}/cam.json
+camera load {d}/cam.json
+materials save {d}/mats.json
+snap
+"""
+
+
+def viewer_check(dev, directory, size=256):
+    """Phase 13, [viewer]: a ViewerSession on the bathroom at size^2 on the
+    card, with the FrameServer on 127.0.0.1 fetched by urllib."""
+    import urllib.request
+    from lighthouse2_tpu_torch.api import RenderAPI
+    from lighthouse2_tpu_torch.apps.viewer_cli import FrameServer, ViewerSession
+    from lighthouse2_tpu_torch.core.types import RenderConfig
+    from lighthouse2_tpu_torch.scene.bench_scene import bathroom
+
+    api = RenderAPI.create("wavefront", RenderConfig(
+        width=size, height=size, spp_per_pass=2, max_path_length=6),
+        device=dev)
+    api.scene, api.camera = bathroom(size, size)
+    server = FrameServer(0)
+    try:
+        session = ViewerSession(api, os.path.join(directory, "frames"),
+                                server=server)
+        _zero_counts()
+        t0 = time.perf_counter()
+        session.run_script(VIEWER_SCRIPT.format(d=directory))
+        secs = time.perf_counter() - t0
+        launches = _counts()
+        url = f"http://127.0.0.1:{server.port}"
+        png = urllib.request.urlopen(url + "/frame.png", timeout=30).read()
+        stats = urllib.request.urlopen(url + "/stats", timeout=30).read()
+    finally:
+        server.close()
+    files = sorted(os.listdir(session.out_dir))
+    want = [f"frame_{i:04d}.png" for i in range(5)] + [
+        "debug_bvh_0004.png", "debug_gbuffer_0004.png"]
+    with open(os.path.join(session.out_dir, "frame_0004.png"), "rb") as fh:
+        last = fh.read()
+    res = dict(seconds=secs, files=files, launches=launches,
+               selected_material=session.selected_mat,
+               png_is_last_frame=png == last, stats_bytes=len(stats),
+               log=session.log)
+    print("[viewer] " + json.dumps(res), flush=True)
+    missing = [f for f in want if f not in files] + [
+        f for f in ("cam.json", "mats.json")
+        if not os.path.exists(os.path.join(directory, f))]
+    if missing:
+        raise AssertionError(f"viewer files missing: {missing}")
+    if session.selected_mat < 0 or not res["png_is_last_frame"] \
+            or b"render_time" not in stats:
+        raise AssertionError("viewer: probe or FrameServer failed: "
+                             + json.dumps(res))
+    return res
+
+
+def ai_check(dev, directory):
+    """Phase 14, [ai]: ai_debugger_cli with its Cornell defaults on `dev`
+    (the card), and on the CPU (16x16, 1 spp: the navmesh does not depend on the
+    render) for the navmesh and the path."""
+    import contextlib
+    import io
+    import numpy as np
+    from lighthouse2_tpu_torch.apps import ai_debugger_cli
+    from lighthouse2_tpu_torch.pathfinding.io import load_navmesh
+    from lighthouse2_tpu_torch.utils.image import read_png
+
+    out = {}
+    for where, extra in (("card", ["--device", str(dev)]),
+                         ("cpu", ["--device", "cpu", "--size", "16", "--spp",
+                                  "1"])):
+        png = os.path.join(directory, f"ai_{where}.png")
+        nav = os.path.join(directory, f"ai_{where}.npz")
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = ai_debugger_cli.main(["cornell", "-o", png,
+                                       "--save-navmesh", nav] + extra)
+        lines = [ln for ln in buf.getvalue().splitlines()
+                 if ln.startswith(("navmesh:", "path:", "agent at"))]
+        out[where] = dict(rc=rc, seconds=time.perf_counter() - t0,
+                          lines=lines, png=png, nav=load_navmesh(nav))
+    card, cpu = out["card"], out["cpu"]
+    img = read_png(card["png"])
+    same_mesh = all(np.array_equal(getattr(card["nav"], f),
+                                   getattr(cpu["nav"], f))
+                    for f in ("walkable", "region", "floor", "origin"))
+    res = dict(rc=card["rc"], seconds=card["seconds"], lines=card["lines"],
+               cpu_lines=cpu["lines"], png_shape=list(img.shape),
+               navmesh_equal=same_mesh)
+    print("[ai] " + json.dumps(res), flush=True)
+    if card["rc"] != 0 or cpu["rc"] != 0 or img.shape != (256, 256, 3):
+        raise AssertionError(f"ai_debugger_cli: {res}")
+    if not same_mesh or card["lines"] != cpu["lines"] or len(
+            card["lines"]) != 3:
+        raise AssertionError("ai_debugger_cli: card and CPU navmesh or path "
+                             f"differ: {res}")
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1014,6 +1430,24 @@ def main() -> int:
     finally:
         shutil.rmtree(anim_dir, ignore_errors=True)
 
+    filt = filter_path(host, cam, dev, FILTER_FRAMES)
+    print(f"[filter] {filt['mean_frame_ms']:.1f} ms a frame = "
+          f"{filt['mean_pass_ms']:.1f} ms render_pass + "
+          f"{filt['mean_filter_ms']:.1f} ms filter on {card} (bathroom "
+          f"{size}x{size}, spp 1, path {path_len}, classic, TAA); filter "
+          f"alone {filt['filter_alone']['ms']:.2f} ms, "
+          f"{filt['filter_alone']['device_launches']} device launches; "
+          f"history kept on >= {filt['min_history_share']:.1%} of pixels",
+          flush=True)
+    filter_reference(dev)
+    probe_res = probe_path(scene, cam, dev)
+    app_dir = tempfile.mkdtemp(prefix="chip_smoke_apps_", dir=BUILD_DIR)
+    try:
+        viewer = viewer_check(dev, app_dir)
+        ai_check(dev, app_dir)
+    finally:
+        shutil.rmtree(app_dir, ignore_errors=True)
+
     rows = []
     for name, batch, line, sym, key in (
             ("trace_closest", "bounce1", 229, "closest_kernel", "closest_ms"),
@@ -1030,6 +1464,13 @@ def main() -> int:
             launches_disney_fwd_bwd_step=disney_train["launches"][name],
             launches_anim_per_frame=[f["launches"][name]
                                      for f in anim["frames"]],
+            launches_filter_per_frame=[f["launches"][name]
+                                       for f in filt["frames"]],
+            launches_probe=dict(
+                heatmap=probe_res["launches_heatmap"][name],
+                probe_pixel_grid=probe_res["launches_probe_grid"][name],
+                gbuffer_views=probe_res["launches_gbuffer"][name],
+                viewer_session=viewer["launches"][name]),
             main_path_ms_per_launch=dict(
                 lambert=lambert_prof["kernel_ms_per_launch"][sym],
                 disney=disney_prof["kernel_ms_per_launch"][sym]),

@@ -11,8 +11,9 @@ loop (rendersystem.cpp:214-301):
 
 Differences: create takes a `device` (default: the card, raising without
 one; "cpu" runs the plain versions on the host; see device.resolve_device)
-and the scene is synced to it with scene.sync(device); probe is not ported
-yet.
+and the scene is synced to it with scene.sync(device, rebuild_bvh=
+config.use_bvh); probe traces through the closest-hit kernel on a card
+(render/probe.py).
 """
 from __future__ import annotations
 
@@ -57,7 +58,7 @@ class RenderAPI:
         (rendersystem.cpp:214-237). converge=None restarts the
         accumulation when the camera or the scene changed."""
         scene_dirty = self.scene.dirty
-        device_scene = self.scene.sync(self.device)
+        device_scene = self.device_scene()
         cam_moved = self._camera_changed()
         if converge is None:
             converge = not (scene_dirty or cam_moved)
@@ -80,7 +81,15 @@ class RenderAPI:
 
     def device_scene(self):
         """The synced DeviceScene (for instrumentation)."""
-        return self.scene.sync(self.device)
+        return self.scene.sync(self.device, rebuild_bvh=self.config.use_bvh)
+
+    def probe(self, x: int, y: int) -> dict:
+        """Pixel probe (core_api_base.h:57-60, rendersystem.cpp:249-256):
+        prim / material / distance / u / v at pixel (x, y)."""
+        from lighthouse2_tpu_torch.render.probe import probe_pixel
+        return probe_pixel(self.device_scene(),
+                           self.camera.get_view(self.device), self.config,
+                           x, y)
 
     def serialize_camera(self, path):
         self.camera.serialize(path)

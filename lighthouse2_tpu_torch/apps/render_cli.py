@@ -8,9 +8,10 @@ Counterpart of lighthouse2_tpu/apps/render_cli.py, with its flags, plus
 `--device` (default: the card, raising without one; "cpu" runs the plain
 versions on the host). Prints per-pass stats (rays, Mrays/s) like the
 reference's ImGui panel (apps/imguiapp/main.cpp:222-233) and returns 0.
-Differences: options the port does not implement yet (`--no-bvh`, the
-cores it has not ported) raise from the render entry points; the default
-framing reads the world triangles on the host instead of syncing the scene.
+`--no-bvh` syncs the scene without a BVH and traces by brute force
+(core/geometry.py), as in JAX. Differences: a core the port has not ported
+(bdpt) raises from create_core; the default framing reads the world
+triangles on the host instead of syncing the scene.
 """
 from __future__ import annotations
 
@@ -33,7 +34,8 @@ def main(argv=None) -> int:
     ap.add_argument("--max-path", type=int, default=8)
     ap.add_argument("--bsdf", choices=["lambert", "disney"], default="lambert")
     ap.add_argument("--core", default="wavefront",
-                    help="render core name (wavefront|primeref|minimal|preview)")
+                    help="render core name (wavefront|primeref|minimal|"
+                         "preview|wavefront_filter)")
     ap.add_argument("--no-bvh", action="store_true")
     ap.add_argument("--camera", default=None, help="camera JSON to load")
     ap.add_argument("--save-camera", default=None)

@@ -2,8 +2,11 @@
 
 Counterpart of lighthouse2_tpu/core/geometry.py: dot, cross, normalize,
 reflect, onb, oriented_frame, tangent_to_world, safe_origin,
-consistent_normal and mt_comp, with the same arithmetic in the same order;
-sqrt0 is the port's own (a square root whose gradient at 0 is not NaN).
+consistent_normal, mt_comp, intersect_bruteforce and occluded_bruteforce,
+with the same arithmetic in the same order; sqrt0 is the port's own (a
+square root whose gradient at 0 is not NaN). The brute-force intersectors
+scan the triangle chunks in a Python loop where JAX runs lax.scan, and take
+a per-lane or scalar t_max in both functions.
 """
 from __future__ import annotations
 
@@ -121,3 +124,61 @@ def mt_comp(ox, oy, oz, dx, dy, dz,
     hit = (valid & (u >= 0.0) & (u <= 1.0) & (v >= 0.0) & (u + v <= 1.0)
            & (t > t_min) & (t < t_max))
     return torch.where(hit, t, BIG_T), u, v, hit
+
+
+def _chunks(v0, e1, e2, chunk):
+    """Yield (first triangle, the 9 component rows [1, chunk] of v0, e1,
+    e2) per chunk, the last one padded with zero (never hit) triangles."""
+    pad = (-v0.shape[0]) % chunk
+    if pad:
+        z = v0.new_zeros((pad, 3))
+        v0, e1, e2 = (torch.cat([x, z], 0) for x in (v0, e1, e2))
+    for s in range(0, v0.shape[0], chunk):
+        yield s, [x[None, s:s + chunk, k] for x in (v0, e1, e2)
+                  for k in range(3)]
+
+
+def _rays(o, d):
+    """The 6 component columns [N, 1] of o and d."""
+    return [x[:, k:k + 1] for x in (o, d) for k in range(3)]
+
+
+def intersect_bruteforce(o, d, v0, e1, e2, t_max=BIG_T, chunk=1024):
+    """Closest hit of [N] rays against [T] triangles without a BVH: every
+    ray against every triangle, `chunk` triangles at a time (the last chunk
+    padded), the lowest index winning a tie in t. Returns (t [N], prim [N]
+    int32 (-1 on a miss, then t = BIG_T), u [N], v [N])."""
+    n = o.shape[0]
+    rays = _rays(o, d)
+    t_max = torch.broadcast_to(torch.as_tensor(t_max, dtype=o.dtype,
+                                               device=o.device), (n,))
+    bt = torch.full((n,), BIG_T, dtype=o.dtype, device=o.device)
+    bp = torch.full((n,), -1, dtype=torch.int32, device=o.device)
+    bu = torch.zeros_like(bt)
+    bv = torch.zeros_like(bt)
+    for base, tri in _chunks(v0, e1, e2, chunk):
+        t, u, v, hit = mt_comp(*rays, *tri, EPSILON,
+                               torch.minimum(bt, t_max)[:, None])
+        t = torch.where(hit, t, BIG_T)
+        j = torch.argmin(t, dim=1, keepdim=True)
+        tj = torch.take_along_dim(t, j, 1)[:, 0]
+        better = tj < bt
+        bt = torch.where(better, tj, bt)
+        bp = torch.where(better, (base + j[:, 0]).to(torch.int32), bp)
+        bu = torch.where(better, torch.take_along_dim(u, j, 1)[:, 0], bu)
+        bv = torch.where(better, torch.take_along_dim(v, j, 1)[:, 0], bv)
+    bp = torch.where(bp < v0.shape[0], bp, -1)
+    return bt, bp, bu, bv
+
+
+def occluded_bruteforce(o, d, t_max, v0, e1, e2, chunk=1024):
+    """Any-hit occlusion of [N] rays against [T] triangles: True where a
+    triangle is hit with EPSILON < t < t_max (a scalar or [N])."""
+    n = o.shape[0]
+    rays = _rays(o, d)
+    t_max = torch.broadcast_to(torch.as_tensor(t_max, dtype=o.dtype,
+                                               device=o.device), (n,))
+    occ = torch.zeros(n, dtype=torch.bool, device=o.device)
+    for _, tri in _chunks(v0, e1, e2, chunk):
+        occ = occ | mt_comp(*rays, *tri, EPSILON, t_max[:, None])[3].any(1)
+    return occ

@@ -17,9 +17,11 @@ class RenderConfig:
     """Static render configuration (field meanings as in the JAX package).
 
     The port implements the classic and the path-regeneration executors
-    (with remat), the Lambert and Disney BSDFs and sky IBL; render entry
-    points reject the options it does not implement yet (filter, TAA,
-    scene sharding, use_bvh=False, an intersector other than "auto")."""
+    (with remat), the filter's G-buffer stream (classic executor only),
+    the Lambert and Disney BSDFs, sky IBL and the brute-force intersector
+    (use_bvh=False or intersector="brute"; "auto" and "lockstep" take the
+    trace kernels); render entry points reject what it does not implement
+    yet (scene sharding, intersector="cluster")."""
     width: int = 512
     height: int = 512
     spp_per_pass: int = 1

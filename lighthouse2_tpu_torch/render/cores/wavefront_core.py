@@ -6,14 +6,20 @@ Counterpart of lighthouse2_tpu/render/cores/wavefront_core.py:
     64, no diffuse-bounce cap, no Russian roulette, no firefly clamp
     (RenderCore_PrimeRef);
   - "minimal": plots every vertex as a white dot (RenderCore_Minimal);
+  - "wavefront_filter": the 1-spp real-time core, one classic pass a frame
+    split into direct and indirect, filtered with SVGF and TAA
+    (RenderCore_Optix7Filter);
   - "preview": primary rays only, albedo x (headlight N.L + ambient), the
     sky on a miss (the RenderCore_SoftRasterizer-class core).
 Differences: the cores run eagerly on the device the scene is on and wait
 with torch.cuda.synchronize where the JAX package calls
 jax.block_until_ready; MinimalCore's .at[idx].max is scatter_reduce "amax";
 PreviewCore traces through the port's _trace (the closest-hit kernel on a
-card, one launch a render), _refine and get_shading_data. The filtered and
-bidirectional cores are not ported yet.
+card, one launch a render), _refine and get_shading_data;
+FilteredWavefrontCore's stats add "pass_time" (render_pass) and
+"filter_time" (SVGF + TAA + unsharpen), each closed by a synchronize, and
+the per-bounce ray counts as WavefrontCore's do. The
+bidirectional core is not ported yet.
 """
 from __future__ import annotations
 
@@ -58,13 +64,11 @@ class WavefrontCore(RenderCore):
             # completed this pass
             pc = self.state.pixel_count
             spp_stat = {"spp": pc.mean().item(), "spp_min": pc.min().item()}
-            primary = int(stats["samples_completed"])
         else:
             spp_stat = {"spp": int(self.state.sample_count)}
-            primary = int(stats["primary_rays"])
         self.stats = {
             "render_time": wall,
-            "primary_rays": primary,
+            "primary_rays": int(stats["primary_rays"]),
             "extension_rays": ext,
             "shadow_rays": shad,
             "total_rays": ext + shad,
@@ -79,6 +83,80 @@ class WavefrontCore(RenderCore):
         img = finalize(self.state)
         return img.cpu().numpy().reshape(self.config.height,
                                          self.config.width, 3)
+
+
+@register_core("wavefront_filter")
+class FilteredWavefrontCore(RenderCore):
+    """1-spp real-time core with SVGF + TAA (RenderCore_Optix7Filter).
+
+    Each render() traces one pass, splits direct / indirect and filters
+    with temporal history; converge=False (camera moved) keeps the history,
+    which is reprojected through the previous frame's view."""
+
+    def __init__(self, config: RenderConfig):
+        config = dataclasses.replace(config, filter_enabled=True)
+        super().__init__(config)
+        self.filter_state = None
+        self.taa_state = None
+        self.image = None
+        self.prev_view = None     # the previous frame's (jittered) view
+        self.frame_idx = 0
+
+    def render(self, device_scene, view, converge: bool = True) -> dict:
+        from lighthouse2_tpu_torch.render.filter import (
+            FilterState, TAAState, jittered_view, svgf_filter, taa,
+            unsharpen)
+        dev = device_scene.device
+        h, w = self.config.height, self.config.width
+        if self.filter_state is None:
+            self.filter_state = FilterState.make(h, w, dev)
+            self.taa_state = TAAState.make(h, w, dev)
+        if self.config.taa_enabled:
+            # 4-phase Halton subpixel jitter (rendercore.cpp:734-743)
+            view, _ = jittered_view(view, self.frame_idx, w, h)
+        t0 = time.perf_counter()
+        state = AccumState.make(self.config, dev)   # fresh every frame
+        state, stats = render_pass(device_scene, view, state, self.config)
+        _sync(dev)
+        t1 = time.perf_counter()
+        aux = stats["filter_aux"]
+        img = lambda x: x.reshape(h, w, *x.shape[1:])
+        spp = max(1, self.config.spp_per_pass)
+        direct = img(state.accumulator[:, :3]) / spp
+        indirect = img(aux["indirect"]) / spp
+        world_pos = img(aux["world_pos"])
+        color, self.filter_state = svgf_filter(
+            direct, indirect, img(aux["albedo"]), img(aux["normal"]),
+            img(aux["depth"]), world_pos, self.filter_state,
+            direct_clamp=self.config.clamp_direct,
+            indirect_clamp=self.config.clamp_indirect,
+            prev_view=self.prev_view)
+        if self.config.taa_enabled:
+            color, self.taa_state = taa(color, self.taa_state,
+                                        world_pos=world_pos,
+                                        prev_view=self.prev_view)
+            color = unsharpen(color)
+        self.prev_view = view
+        self.frame_idx += 1
+        self.image = color.cpu().numpy()
+        t2 = time.perf_counter()
+        ext = int(stats["total_extension"])
+        shad = int(stats["total_shadow"])
+        wall = t2 - t0
+        self.stats = {
+            "render_time": wall, "pass_time": t1 - t0, "filter_time": t2 - t1,
+            "primary_rays": int(stats["primary_rays"]),
+            "extension_rays": ext, "shadow_rays": shad,
+            "total_rays": ext + shad,
+            "mrays_per_s": (ext + shad) / max(wall, 1e-9) / 1e6,
+            "spp": spp,
+            "extension_per_bounce": stats["extension_rays"].cpu().numpy(),
+            "shadow_per_bounce": stats["shadow_rays"].cpu().numpy(),
+        }
+        return self.stats
+
+    def get_image(self) -> np.ndarray:
+        return self.image
 
 
 @register_core("primeref")
@@ -162,7 +240,7 @@ class PreviewCore(RenderCore):
         o, d = paths["origin"], paths["dir"]
         t, prim, u, uv_v = _refine(device_scene, o, d,
                                    *_trace(device_scene, o, d,
-                                           paths["alive"]))
+                                           paths["alive"], cfg))
         hit = prim >= 0
         ts = torch.where(hit, t, 1.0)
         sd = get_shading_data(device_scene, d, ts, prim, u, uv_v,

@@ -3,10 +3,12 @@ the path-regeneration executor, both differentiable.
 
 Counterpart of lighthouse2_tpu/render/wavefront.py: AccumState, finalize,
 _clamp_intensity, _fixnan, _masked_div, _tiled_pixel, untile_image,
-generate_eye_rays, _intersect / _occluded (their BVH branches), bounce_step,
-shade_bounce, apply_shadow, trace_paths (the classic executor; also the
-single-pass semantics of trace_paths_unrolled), make_regen_pool,
-trace_paths_regen, ensure_regen_state and render_pass_auto as render_pass.
+generate_eye_rays, _pick_intersector, _intersect / _occluded (their BVH and
+brute-force branches), bounce_step, shade_bounce, apply_shadow, trace_paths
+(the classic executor with the filter's G-buffer stream and _finish_pass's
+filter_aux; also the single-pass semantics of trace_paths_unrolled),
+make_regen_pool, trace_paths_regen, ensure_regen_state and
+render_pass_auto as render_pass.
 
 Each bounce traces (trace_closest), refines the hit and shades with NEE,
 traces the shadow batch (trace_occluded) and accumulates. The classic
@@ -36,8 +38,14 @@ Differences from the JAX package:
   - masks are bool tensors, which carry no gradient, so the stop_gradient
     JAX puts on the dead mask and the completed-sample count has no
     counterpart;
-  - the filter G-buffers and path_idx shards (the parallel layer) are not
-    ported yet; render_pass rejects configs that ask for them.
+  - the intersector is the trace kernels (trace_closest / trace_occluded)
+    whenever the scene has a BVH and config.use_bvh, with intersector
+    "auto" or "lockstep"; "brute" (or use_bvh=False, or a scene without a
+    BVH) takes core/geometry.py's brute force, on detached rays as the
+    kernels take them; "cluster" raises, the cluster tiles are not ported;
+  - filter_enabled with path_regen raises ValueError where JAX asserts;
+  - path_idx shards (the parallel layer) and scene_sharded are not ported
+    yet; render_pass rejects configs that ask for them.
 """
 from __future__ import annotations
 
@@ -50,7 +58,9 @@ from torch.utils.checkpoint import checkpoint
 from lighthouse2_tpu_torch.bvh.traverse import refine_hit
 from lighthouse2_tpu_torch.core import bluenoise as bn
 from lighthouse2_tpu_torch.core import rng as rng_mod
-from lighthouse2_tpu_torch.core.geometry import BIG_T, dot, normalize, safe_origin
+from lighthouse2_tpu_torch.core.geometry import (
+    BIG_T, dot, intersect_bruteforce, normalize, occluded_bruteforce,
+    safe_origin)
 from lighthouse2_tpu_torch.core.types import RenderConfig, ViewPyramid
 from lighthouse2_tpu_torch.device import resolve_device
 from lighthouse2_tpu_torch.render import bsdf_disney, bsdf_lambert
@@ -217,9 +227,36 @@ def generate_eye_rays(view: ViewPyramid, config: RenderConfig, sample_base,
     )
 
 
-def _trace(scene: DeviceScene, o, d, alive):
-    """Closest hit through the trace kernel; dead lanes get tmax = 0."""
-    return trace_closest(o, d, torch.where(alive, BIG_T, 0.0), scene.bvh)
+def _pick_intersector(scene: DeviceScene, config: RenderConfig) -> str:
+    """"brute" without a BVH (config.use_bvh False, intersector "brute" or
+    a scene synced without one), else "bvh": the trace kernels."""
+    mode = config.intersector
+    if mode not in ("auto", "lockstep", "brute"):
+        raise ValueError(f"render_pass does not support intersector={mode!r} "
+                         f"(the cluster tiles are not ported)")
+    if not config.use_bvh or mode == "brute" or scene.bvh is None:
+        return "brute"
+    return "bvh"
+
+
+def _trace(scene: DeviceScene, o, d, alive, config: RenderConfig):
+    """Closest hit (t, prim, u, v) through the trace kernel, or by brute
+    force where _pick_intersector says so; dead lanes get tmax = 0."""
+    tmax = torch.where(alive, BIG_T, 0.0)
+    if _pick_intersector(scene, config) == "brute":
+        t = scene.tris
+        return intersect_bruteforce(o.detach(), d.detach(), t.v0, t.e1, t.e2,
+                                    t_max=tmax, chunk=config.tri_chunk)
+    return trace_closest(o, d, tmax, scene.bvh)
+
+
+def _occluded(scene: DeviceScene, o, d, tmax, config: RenderConfig):
+    """Shadow-ray occlusion through the any-hit kernel or by brute force."""
+    if _pick_intersector(scene, config) == "brute":
+        t = scene.tris
+        return occluded_bruteforce(o.detach(), d.detach(), tmax.detach(),
+                                   t.v0, t.e1, t.e2, chunk=config.tri_chunk)
+    return trace_occluded(o, d, tmax, scene.bvh)
 
 
 def _refine(scene: DeviceScene, o, d, t, prim, u, v):
@@ -231,9 +268,9 @@ def _refine(scene: DeviceScene, o, d, t, prim, u, v):
             torch.where(keep, rv, v))
 
 
-def _intersect(scene: DeviceScene, o, d, alive):
+def _intersect(scene: DeviceScene, o, d, alive, config: RenderConfig):
     """Closest hit, then the differentiable refine: (t, prim, u, v)."""
-    return _refine(scene, o, d, *_trace(scene, o, d, alive))
+    return _refine(scene, o, d, *_trace(scene, o, d, alive, config))
 
 
 def _shade_stage(scene, view, config, paths, acc, cam_seed, li, hit):
@@ -247,15 +284,15 @@ def bounce_step(scene, view, config: RenderConfig, paths, acc, cam_seed, li):
     """One full bounce: trace, refine + shade (checkpointed with
     config.remat), occlude, apply. Returns (paths, acc, cam_seed,
     n_shadow_connections)."""
-    hit = _trace(scene, paths["origin"], paths["dir"], paths["alive"])
+    hit = _trace(scene, paths["origin"], paths["dir"], paths["alive"], config)
     args = (scene, view, config, paths, acc, cam_seed, li, hit)
     if config.remat:
         paths, acc, cam_seed, shadow = checkpoint(_shade_stage, *args,
                                                   use_reentrant=False)
     else:
         paths, acc, cam_seed, shadow = _shade_stage(*args)
-    occ = trace_occluded(shadow["o"], shadow["d"], shadow["tmax"], scene.bvh)
-    acc = apply_shadow(acc, shadow, occ)
+    occ = _occluded(scene, shadow["o"], shadow["d"], shadow["tmax"], config)
+    acc, paths = apply_shadow(config, paths, acc, shadow, occ)
     return paths, acc, cam_seed, shadow["conn_ok"].sum()
 
 
@@ -263,6 +300,17 @@ def _add_rgb(acc, contrib, mask):
     """acc[:, :3] += where(mask, contrib, 0), functionally."""
     return acc + torch.nn.functional.pad(
         torch.where(mask[:, None], contrib, 0.0), (0, 1))
+
+
+def _add_contrib(config, acc, paths, contrib, mask, to_direct):
+    """Route a contribution to the direct stream (acc) or, with the filter
+    on and a diffuse bounce behind the lane, to the indirect G-buffer."""
+    if not config.filter_enabled:
+        return _add_rgb(acc, contrib, mask), paths
+    acc = _add_rgb(acc, contrib, mask & to_direct)
+    ind = paths["acc_ind"] + torch.where((mask & ~to_direct)[:, None],
+                                         contrib, 0.0)
+    return acc, dict(paths, acc_ind=ind)
 
 
 def shade_bounce(scene, view, config: RenderConfig, paths, acc, cam_seed, li,
@@ -304,7 +352,9 @@ def shade_bounce(scene, view, config: RenderConfig, paths, acc, cam_seed, li,
         sky_c = _masked_div(sky_rad, bsdf_pdf, miss)
     if config.clamp_fireflies:
         sky_c = _clamp_intensity(sky_c, config.clamp_value)
-    acc = _add_rgb(acc, _fixnan(sky_c), miss)
+    to_direct = paths["n_diffuse"] == 0
+    acc, paths = _add_contrib(config, acc, paths, _fixnan(sky_c), miss,
+                              to_direct)
 
     hit = alive & (prim >= 0)
     i_pos = o + t[:, None] * d
@@ -328,7 +378,21 @@ def shade_bounce(scene, view, config: RenderConfig, paths, acc, cam_seed, li,
     c_light = torch.where(paths["prev_specular"][:, None], c_spec, c_mis)
     if config.clamp_fireflies:
         c_light = _clamp_intensity(c_light, config.clamp_value)
-    acc = _add_rgb(acc, _fixnan(c_light), lit)
+    acc, paths = _add_contrib(config, acc, paths, _fixnan(c_light), lit,
+                              to_direct)
+
+    if config.filter_enabled:
+        # primary-hit features (kernels/pathtracer.h:98-122 in
+        # RenderCore_Optix7Filter)
+        cap = is_primary & hit
+        cap3 = cap[:, None]
+        paths = dict(
+            paths,
+            g_albedo=torch.where(cap3, sd.color, paths["g_albedo"]),
+            g_normal=torch.where(cap3, sd.n_shading * sd.face_dir[:, None],
+                                 paths["g_normal"]),
+            g_depth=torch.where(cap, t, paths["g_depth"]),
+            g_wpos=torch.where(cap3, i_pos, paths["g_wpos"]))
 
     active = hit & ~sd.emissive
 
@@ -386,7 +450,7 @@ def shade_bounce(scene, view, config: RenderConfig, paths, acc, cam_seed, li,
     shadow_o = safe_origin(i_pos, l_dir, sd.n_geom * face_dir[:, None], geo_eps)
     shadow_tmax = torch.where(conn_ok, dist - 2.0 * geo_eps, 0.0)
     shadow = dict(o=shadow_o, d=l_dir, tmax=shadow_tmax, potential=potential,
-                  conn_ok=conn_ok)
+                  conn_ok=conn_ok, to_direct=to_direct)
 
     # bounce (pathtracer.h:207-239); blue-noise dims 6/7 for the first 256 spp
     may_extend = (active & (paths["n_diffuse"] < config.max_diffuse_bounces)
@@ -436,17 +500,21 @@ def shade_bounce(scene, view, config: RenderConfig, paths, acc, cam_seed, li,
     return paths, acc, cam_seed, shadow
 
 
-def apply_shadow(acc, shadow, occ):
-    """Fold unoccluded NEE contributions into the accumulator
-    (finalizeConnections analog, kernels/connections.h)."""
-    return _add_rgb(acc, shadow["potential"], shadow["conn_ok"] & ~occ)
+def apply_shadow(config: RenderConfig, paths, acc, shadow, occ):
+    """Fold unoccluded NEE contributions into the accumulator, or into the
+    indirect G-buffer (finalizeConnections analog, kernels/connections.h).
+    Returns (acc, paths)."""
+    return _add_contrib(config, acc, paths, shadow["potential"],
+                        shadow["conn_ok"] & ~occ, shadow["to_direct"])
 
 
 def _pass_stats(ext, conn, **extra):
-    ext_t, conn_t = torch.stack(ext), torch.stack(conn)
+    """The per-bounce ray counts and their totals, int32 as in JAX."""
+    ext_t = torch.stack(ext).to(torch.int32)
+    conn_t = torch.stack(conn).to(torch.int32)
     return dict(extension_rays=ext_t, shadow_rays=conn_t,
-                total_extension=ext_t.sum(), total_shadow=conn_t.sum(),
-                **extra)
+                total_extension=ext_t.sum(dtype=torch.int32),
+                total_shadow=conn_t.sum(dtype=torch.int32), **extra)
 
 
 def trace_paths(scene, view, config: RenderConfig, sample_base: int,
@@ -459,12 +527,25 @@ def trace_paths(scene, view, config: RenderConfig, sample_base: int,
     loop when no extension ray is left (rendercore.cpp:723-726), but still
     advances cam_seed, so the sampling schedule does not depend on where
     the paths died. Testing for that reads one bool back from the device
-    each bounce."""
+    each bounce.
+
+    With config.filter_enabled the accumulator holds the direct stream
+    only, and stats["filter_aux"] holds the filter's per-pixel inputs: the
+    indirect sum and the primary hit's albedo, normal, depth and world
+    position (means over spp; misses keep albedo 1, normal 0, depth 0 and
+    world position 1e30)."""
     wh = config.width * config.height
     spp = config.spp_per_pass
     paths = generate_eye_rays(view, config, sample_base)
     n = paths["path_idx"].shape[0]
-    acc = torch.zeros((n, 4), dtype=torch.float32, device=view.pos.device)
+    dev = view.pos.device
+    acc = torch.zeros((n, 4), dtype=torch.float32, device=dev)
+    if config.filter_enabled:
+        # the SVGF G-buffers (RenderCore_Optix7Filter features)
+        f3 = lambda v: torch.full((n, 3), v, dtype=torch.float32, device=dev)
+        paths.update(acc_ind=f3(0.0), g_albedo=f3(1.0), g_normal=f3(0.0),
+                     g_depth=torch.zeros(n, dtype=torch.float32, device=dev),
+                     g_wpos=f3(1e30))
     ext, conn = [], []
     for li in range(config.max_path_length):
         n_alive = paths["alive"].sum()
@@ -476,8 +557,17 @@ def trace_paths(scene, view, config: RenderConfig, sample_base: int,
         paths, acc, cam_seed, n_conn = bounce_step(
             scene, view, config, paths, acc, cam_seed, li)
         conn.append(n_conn)
-    acc_px = untile_image(acc.reshape(spp, wh, -1), config).sum(0)
-    return acc_px, cam_seed, _pass_stats(ext, conn, primary_rays=n)
+    unt = lambda x: untile_image(x.reshape(spp, wh, -1), config)
+    stats = _pass_stats(ext, conn, primary_rays=torch.tensor(
+        n, dtype=torch.int32))
+    if config.filter_enabled:
+        stats["filter_aux"] = dict(
+            indirect=unt(paths["acc_ind"]).sum(0),
+            albedo=unt(paths["g_albedo"]).mean(0),
+            normal=unt(paths["g_normal"]).mean(0),
+            depth=unt(paths["g_depth"]).mean(0)[:, 0],
+            world_pos=unt(paths["g_wpos"]).mean(0))
+    return unt(acc).sum(0), cam_seed, stats
 
 
 def make_regen_pool(view: ViewPyramid, config: RenderConfig):
@@ -529,7 +619,10 @@ def trace_paths_regen(scene, view, config: RenderConfig, state: AccumState):
 
     acc_px = untile_image(acc.reshape(spp, wh, -1), config).sum(0)
     count_px = untile_image(count.reshape(spp, wh, 1), config).sum(0)[:, 0]
-    stats = _pass_stats(ext, conn, samples_completed=count.sum())
+    # "primary_rays" = samples completed this pass, as in JAX: lanes
+    # restart asynchronously, so there is no per-pass primary wavefront
+    done = count.sum().to(torch.int32)
+    stats = _pass_stats(ext, conn, primary_rays=done, samples_completed=done)
     return acc_px, count_px, cam_seed, (paths, depth, sample_k), stats
 
 
@@ -546,13 +639,16 @@ def ensure_regen_state(view, state: AccumState, config: RenderConfig):
 def _check_config(config: RenderConfig):
     unsupported = dict(
         bsdf=config.bsdf not in ("lambert", "disney"),
-        filter_enabled=config.filter_enabled, taa_enabled=config.taa_enabled,
         scene_sharded=config.scene_sharded,
-        use_bvh=not config.use_bvh, intersector=config.intersector != "auto")
+        intersector=config.intersector not in ("auto", "lockstep", "brute"))
     bad = [k for k, v in unsupported.items() if v]
     if bad:
         raise ValueError(f"render_pass does not support these RenderConfig "
                          f"settings yet: {bad}")
+    if config.filter_enabled and config.path_regen:
+        raise ValueError("render_pass does not support filter_enabled with "
+                         "path_regen: the regen executor has no G-buffer "
+                         "stream; the filter runs on the classic executor")
 
 
 def render_pass(scene: DeviceScene, view: ViewPyramid, state: AccumState,

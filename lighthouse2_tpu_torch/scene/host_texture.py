@@ -46,6 +46,14 @@ class HostTexture:
             self.mips.append(m.astype(np.float32))
         self.name = name
 
+    @property
+    def width(self):
+        return self.mips[0].shape[1]
+
+    @property
+    def height(self):
+        return self.mips[0].shape[0]
+
     @staticmethod
     def load(path: str, srgb: bool = True, cache: bool = True) -> "HostTexture":
         """Load with a binary side-cache: the decoded, linearised and MIPped

@@ -12,7 +12,8 @@
     with intersector="lockstep"): the minimal core's dots equal, the
     preview image within rtol 1e-4 / atol 1e-5 on >= 99% of pixels and the
     depth within rtol 1e-5;
-  - create_core raises ValueError for the cores not ported yet;
+  - create_core raises ValueError for the core not ported yet (bdpt) and
+    builds the others, wavefront_filter included;
   - RenderAPI.create without a device raises RuntimeError on a host
     without a card.
 """
@@ -130,12 +131,14 @@ def test_preview_and_minimal_cores_match_jax(monkeypatch):
 
 
 def test_create_core_rejects_cores_not_ported():
-    for name in ("bdpt", "wavefront_filter", "no_such_core"):
+    for name in ("bdpt", "no_such_core"):
         with pytest.raises(ValueError, match="available"):
             create_core(name)
-    for name in ("wavefront", "primeref", "minimal", "preview"):
+    for name in ("wavefront", "primeref", "minimal", "preview",
+                 "wavefront_filter"):
         assert create_core(name).core_name == name
     assert create_core("primeref").config.max_path_length == 64
+    assert create_core("wavefront_filter").config.filter_enabled
 
 
 def test_render_api_needs_a_card_or_cpu():

@@ -118,3 +118,13 @@ def test_entry_points_need_a_card_or_cpu():
             cam.get_view(dev)
     with pytest.raises(RuntimeError):
         scene_from_numpy({}, "cuda")
+
+
+def test_host_texture_width_height_match_jax():
+    """HostTexture.width / .height (JAX host_texture.py:47-53) on a
+    non-square uint8 texture, the JAX class's against the port's."""
+    from lighthouse2_tpu.scene.host_texture import HostTexture as JTexture
+    from lighthouse2_tpu_torch.scene.host_texture import HostTexture as TTexture
+    pix = np.random.default_rng(0).integers(0, 256, (5, 7, 3), dtype=np.uint8)
+    j, t = JTexture(pix), TTexture(pix)
+    assert (t.width, t.height) == (j.width, j.height) == (7, 5)

@@ -6,7 +6,12 @@
     through the port on the CPU (the trace kernels' plain versions) and the
     JAX package with intersector="lockstep" (its plain reference for the
     trace kernels, shading through the same gather path), on the same
-    carried-across scene and view.
+    carried-across scene and view; the stats carry JAX's keys, dtypes and
+    shapes (primary_rays = samples_completed, int32), and the completed
+    samples total the per-pixel counts;
+  - render_pass rejects what the port does not implement (filter_enabled
+    with path_regen, as JAX asserts; intersector="cluster";
+    scene_sharded).
 Per-pixel accumulators are compared as the fraction of pixels within
 rtol 1e-3 / atol 1e-4, required >= 99%: XLA and torch round transcendentals
 differently, and one flipped Russian-roulette or BSDF decision legitimately
@@ -84,11 +89,21 @@ def test_regen_slice_matches_jax_lockstep(cornell):
     tstate = twf.AccumState.make(tcfg, "cpu")
     jtot = np.zeros(2, np.int64)
     ttot = np.zeros(2, np.int64)
+    jdone = tdone = 0
     for _ in range(2):
         jstate, js = jwf.render_pass_regen(jds, jview, jstate, jcfg)
         tstate, ts = twf.render_pass(tds, tview, tstate, tcfg)
         jtot += [int(js["total_extension"]), int(js["total_shadow"])]
         ttot += [int(ts["total_extension"]), int(ts["total_shadow"])]
+        # the stats carry JAX's keys with JAX's dtypes (int32 scalars for
+        # primary_rays = samples_completed, the samples completed)
+        assert sorted(ts) == sorted(js)
+        for k in js:
+            assert str(ts[k].dtype).split(".")[-1] == str(js[k].dtype), k
+            assert tuple(ts[k].shape) == js[k].shape, k
+        assert int(ts["primary_rays"]) == int(ts["samples_completed"])
+        jdone += int(js["samples_completed"])
+        tdone += int(ts["samples_completed"])
     jax.block_until_ready(jstate.accumulator)
     assert tstate.sample_count == 2 and tstate.cam_seed == int(jstate.cam_seed)
 
@@ -99,6 +114,8 @@ def test_regen_slice_matches_jax_lockstep(cornell):
 
     jc, tc = np.asarray(jstate.pixel_count), tstate.pixel_count.numpy()
     assert ((jc != tc) <= ~close).all()
+    assert tdone == tc.sum() and jdone == jc.sum()
+    assert abs(tdone - jdone) <= np.abs(jc - tc).sum()
     assert jtot[0] == ttot[0] == 2 * 4 * 32 * 32
     assert abs(jtot[1] - ttot[1]) <= n_diff * 2 * 4
 
@@ -110,8 +127,8 @@ def test_regen_slice_matches_jax_lockstep(cornell):
 
 def test_render_pass_rejects_unported_options(cornell):
     _, _, tds, tview = cornell
-    for kw in (dict(path_regen=False, filter_enabled=True),
-               dict(path_regen=True, taa_enabled=True),
+    for kw in (dict(path_regen=True, filter_enabled=True),
+               dict(path_regen=False, intersector="cluster"),
                dict(path_regen=True, scene_sharded=True)):
         cfg = RenderConfig(width=32, height=32, max_path_length=2, **kw)
         with pytest.raises(ValueError, match="does not support"):
