@@ -105,7 +105,44 @@ Phases; any failure exits non-zero before the result line is printed:
      frame's PNG bytes and the stats, fetched with urllib;
  14. [ai] apps/ai_debugger_cli.main with its Cornell defaults on the card:
      returns 0, writes a 256x256 PNG; its navmesh arrays and its navmesh,
-     path and agent lines equal a CPU run's.
+     path and agent lines equal a CPU run's;
+ 15. [bdpt] the bathroom 512x512, spp 1, path 16 (5 + 5 vertices a side),
+     Lambert, through RenderAPI.create("bdpt") on the card: 1 warm-up and
+     BDPT_PASSES timed api.render() calls; ms per pass (render_time, closed
+     by a synchronize), Mrays/s ((extension + connection rays) / wall, the
+     stats' own totals: every lane of every walk step, dead or not, and
+     the unoccluded connections, so not comparable with the path tracer's
+     rate), the rays the kernels traced on live lanes (tmax > 0) in one
+     pass and their rate at the mean ms a pass, peak memory, the launches
+     of each kernel per pass
+     (must be 9 closest = 5 + 4 walk steps and 30 any-hit = 5 x 5
+     connections + 5 lens connections), the image (finite); one profiled
+     pass; both kernels against their plain BVH4 walk on every lane (t,
+     prim, u, v, occlusion and the counts) of three batches captured from
+     one pass: the first light-walk segment, the (s=2, t=3) connection
+     batch and the s=2 lens batch; then one Disney pass through a "bdpt"
+     core on the same scene (finite, its ms);
+ 16. [bdpt reference] (a) two "bdpt" passes of a 16x16 Cornell box, path 8,
+     on the card and on the CPU: Lambert must agree on >= 99% of pixels
+     within rtol / atol 1e-3; Disney on >= BDPT_DISNEY_PIXELS_MIN of them
+     (the Disney lobes are chaotic in float32: a CPU run with the vertices
+     moved by 1e-7 agrees with the unmoved one on only part of the pixels,
+     see the constant); (b) the estimator check of tests/test_bdpt.py:52-84
+     on the card: the Cornell box with its walls dimmed to 0.48 of their
+     colour, 16x16, spp 8, path 8, no BVH, clamp off, BDPT_EST_PASSES
+     passes of BDPT and of the classic path tracer: relative difference of
+     the means < 0.04 and mean |BDPT - PT| < 0.25 of the PT mean (that
+     test's bounds: a wrong MIS weight biases the estimator);
+ 17. [parallel] init_distributed with NCCL, world size 1, a file:// store
+     under build/: render_pass_sharded of the bathroom 512x512, classic,
+     spp 1, path 16 (one untimed pass sets up the communicator), against
+     the unsharded classic render_pass, timed in the order sharded,
+     unsharded, unsharded, sharded: every pixel within
+     rtol 1e-6, the stats totals equal, the launches of each kernel per
+     sharded pass; train_step_sharded on a 64x64 Cornell box (material
+     colours) against the single-process gradient, loss and gradients
+     within rtol 1e-5; measure_scaling's row and collective_bytes_per_pass;
+     the group destroyed at the end.
 It then prints one JSON line of per-kernel numbers, the card's name and
 power limit, and last the result line {"ok": true, "device": {...}}.
 """
@@ -152,6 +189,9 @@ FILTER_TURN = 0.5          # camera yaw a frame (degrees)
 # share of the 64x64 filtered Cornell pixels within rtol / atol 1e-3 of the
 # CPU's, every frame (as [reference])
 FILTER_PIXELS_MIN = 0.99
+BDPT_PASSES = 3            # timed api.render() calls of [bdpt]
+BDPT_EST_PASSES = 24       # passes of each estimator (tests/test_bdpt.py:73-74)
+BDPT_DISNEY_PIXELS_MIN = 0.95
 
 
 def _sh(cmd):
@@ -1332,6 +1372,348 @@ def ai_check(dev, directory):
     return res
 
 
+def _bdpt_depths(cfg):
+    """(eye, light) vertices a side of a BDPT pass (render/bdpt.py)."""
+    from lighthouse2_tpu_torch.render.bdpt import EYE_DEPTH, LIGHT_DEPTH
+    return (min(EYE_DEPTH, cfg.max_path_length),
+            min(LIGHT_DEPTH, cfg.max_path_length))
+
+
+def _bdpt_launches(cfg):
+    """Kernel launches of one BDPT pass: a closest launch per walk step,
+    an any-hit launch per connection batch and per lens batch."""
+    s_e, s_l = _bdpt_depths(cfg)
+    return dict(trace_closest=s_e + s_l - 1, trace_occluded=s_l * s_e + s_l)
+
+
+def _capture_traces(fn, keep):
+    """Run fn with the trace wrappers that render/wavefront.py calls
+    recording the rays of the calls numbered in keep ({"closest": set,
+    "occluded": set}, 0-based call order) and counting every call's live
+    lanes (tmax > 0). Returns ({(kind, i): (o, d, tmax)}, {kind: calls},
+    {kind: live lanes})."""
+    import torch
+    from lighthouse2_tpu_torch.render import wavefront as wf
+    real = dict(closest=wf.trace_closest, occluded=wf.trace_occluded)
+    calls = dict(closest=0, occluded=0)
+    live = dict(closest=0, occluded=0)
+    got = {}
+
+    def recorder(kind):
+        def call(o, d, tmax, bvh, **kw):
+            i = calls[kind]
+            calls[kind] += 1
+            tm = torch.broadcast_to(torch.as_tensor(
+                tmax, dtype=torch.float32, device=o.device), (o.shape[0],))
+            live[kind] += int((tm > 0).sum())
+            if i in keep[kind]:
+                got[(kind, i)] = tuple(x.detach().clone().contiguous()
+                                       for x in (o, d, tm))
+            return real[kind](o, d, tmax, bvh, **kw)
+        return call
+
+    wf.trace_closest, wf.trace_occluded = recorder("closest"), recorder(
+        "occluded")
+    try:
+        fn()
+    finally:
+        wf.trace_closest, wf.trace_occluded = real["closest"], real["occluded"]
+    return got, calls, live
+
+
+def kernels_on_batches(batches, bvh, dev, iters):
+    """Both kernels against their plain BVH4 walk on every lane of each
+    batch {name: (o, d, tmax)} (t, prim, u, v, occlusion and the per-ray
+    counts), and their CUDA-event ms. Returns {name: numbers}."""
+    import torch
+    from lighthouse2_tpu_torch.bvh.wide import wide_intersect, wide_occluded
+    from lighthouse2_tpu_torch.render.kernels.trace import (
+        trace_closest, trace_occluded)
+
+    out = {}
+    for name, (o, d, tmax) in batches.items():
+        got = trace_closest(o, d, tmax, bvh, stats=True)
+        want = wide_intersect(o, d, bvh, t_max=tmax, stats=True)
+        ko, kst = trace_occluded(o, d, tmax, bvh, stats=True)
+        wo, wst = wide_occluded(o, d, tmax, bvh, stats=True)
+        lanes = [g == w for g, w in zip(got[:4], want[:4])] + [
+            ko == wo, (got[4] == want[4]).all(0), (kst == wst).all(0)]
+        out[name] = dict(
+            rays=int(o.shape[0]), live=int((tmax > 0).sum()),
+            hits=int((got[1] >= 0).sum()), occluded=int(ko.sum()),
+            lanes_equal=torch.stack(lanes).all(0).float().mean().item(),
+            closest_ms=_time_ms(lambda: trace_closest(o, d, tmax, bvh),
+                                iters, dev),
+            occluded_ms=_time_ms(lambda: trace_occluded(o, d, tmax, bvh),
+                                 iters, dev))
+    return out
+
+
+def bdpt_path(host, cam, cfg, dev, passes):
+    """Phase 15, [bdpt]: the bathroom through RenderAPI.create("bdpt") on
+    the card; BDPT's own ray batches against the plain walk; one Disney
+    pass. Returns the numbers."""
+    import numpy as np
+    import torch
+    from lighthouse2_tpu_torch.api import RenderAPI
+
+    api = RenderAPI.create("bdpt", cfg, device=dev)
+    api.scene, api.camera = host, cam
+    t0 = time.perf_counter()
+    api.render()                                  # sync + warm-up pass
+    torch.cuda.synchronize(dev)
+    warm_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero_counts()
+    per_pass, stats = [], []
+    for _ in range(passes):
+        before = _counts()
+        stats.append(dict(api.render()))
+        after = _counts()
+        per_pass.append({k: after[k] - before[k] for k in after})
+    peak = torch.cuda.max_memory_allocated(dev)
+    img = api.get_image()
+    render_s = sum(st["render_time"] for st in stats)
+    rays = sum(st["total_rays"] for st in stats)
+    res = dict(
+        passes=passes, warmup_seconds=warm_s, render_seconds=render_s,
+        ms_per_pass=[st["render_time"] * 1e3 for st in stats],
+        mean_ms_per_pass=render_s * 1e3 / passes,
+        mrays_per_s=rays / render_s / 1e6, rays=rays,
+        extension_rays=stats[-1]["extension_rays"],
+        connection_rays=stats[-1]["shadow_rays"],
+        launches_per_pass=per_pass, want_launches=_bdpt_launches(cfg),
+        max_memory_allocated=peak, image_mean=float(img.mean()),
+        image_finite=bool(np.isfinite(img).all()))
+    print("[bdpt] " + json.dumps(res), flush=True)
+    res["profile"] = _profile(lambda: api.render(), dev, "[bdpt profile] ")
+
+    # the kernels on BDPT's own batches: the first light-walk step (after
+    # the eye walk's s_e closest calls), the (s=2, t=3) connection batch
+    # and the s=2 lens batch (after the s_l * s_e connection batches)
+    s_e, s_l = _bdpt_depths(cfg)
+    names = {("closest", s_e): "light_walk_1",
+             ("occluded", s_e + 1): "connection_s2_t3",
+             ("occluded", s_l * s_e + 1): "lens_s2"}
+    keep = dict(closest={s_e}, occluded={s_e + 1, s_l * s_e + 1})
+    got, calls, live = _capture_traces(lambda: api.render(), keep)
+    # the stats count every lane of every walk step (as JAX's do), dead or
+    # not, and the unoccluded connections; these are the rays the kernels
+    # traced on live lanes in this one pass
+    res["live_rays"] = dict(live, total=sum(live.values()))
+    res["live_mrays_per_s"] = (res["live_rays"]["total"]
+                               / (res["mean_ms_per_pass"] * 1e3))
+    print("[bdpt] live-lane rays of one pass: " + json.dumps(
+        res["live_rays"]) + f", {res['live_mrays_per_s']:.3f} Mrays/s at the "
+          "mean ms a pass", flush=True)
+    batches = {names[k]: v for k, v in got.items()}
+    res["batches"] = kernels_on_batches(batches, api.device_scene().bvh, dev,
+                                        KERNEL_ITERS)
+    res["captured_calls"] = calls
+    print("[bdpt] BDPT's own batches: " + json.dumps(res["batches"]),
+          flush=True)
+
+    dapi = RenderAPI.create("bdpt", dataclasses.replace(cfg, bsdf="disney"),
+                            device=dev)
+    dapi.scene, dapi.camera = host, cam
+    dapi.render()                                 # warm-up
+    dst = dapi.render()
+    dimg = dapi.get_image()
+    res["disney"] = dict(ms=dst["render_time"] * 1e3,
+                         mrays_per_s=dst["mrays_per_s"],
+                         image_mean=float(dimg.mean()),
+                         image_finite=bool(np.isfinite(dimg).all()))
+    print("[bdpt] Disney: " + json.dumps(res["disney"]), flush=True)
+
+    want = res["want_launches"]
+    if any(p != want for p in per_pass) or {
+            f"trace_{k}": v for k, v in calls.items()} != want:
+        raise AssertionError(f"a BDPT pass must launch {want}, got "
+                             f"{per_pass} and {calls}")
+    if sorted(batches) != sorted(names.values()) or any(
+            b["lanes_equal"] != 1.0 for b in res["batches"].values()):
+        raise AssertionError("kernel and plain BVH4 walk differ on BDPT's "
+                             "batches: " + json.dumps(res["batches"]))
+    if not (res["image_finite"] and res["image_mean"] > 0):
+        raise AssertionError("the BDPT image is not finite and positive")
+    if not res["disney"]["image_finite"]:
+        raise AssertionError("the Disney BDPT image is not finite")
+    return res
+
+
+def _dimmed_cornell(size):
+    """tests/test_bdpt.py:62-66: the Cornell box with every non-emissive
+    material at 0.48 of its colour."""
+    from lighthouse2_tpu_torch.scene.presets import cornell_box
+    scene, cam = cornell_box(size, size)
+    for i, m in enumerate(scene.materials):
+        if max(m.color) <= 1.0:
+            scene.materials[i] = m.replace(
+                color=tuple(0.48 * c for c in m.color))
+    return scene, cam
+
+
+def bdpt_reference(dev, est_passes=BDPT_EST_PASSES):
+    """Phase 16, [bdpt reference]: "bdpt" on the card against the CPU, and
+    BDPT against the path tracer on the card (the end-to-end MIS check)."""
+    import numpy as np
+    import torch
+    from lighthouse2_tpu_torch.api import RenderAPI
+    from lighthouse2_tpu_torch.core.types import RenderConfig
+    from lighthouse2_tpu_torch.render.bdpt import render_pass_bdpt
+    from lighthouse2_tpu_torch.render.wavefront import (
+        AccumState, finalize, render_pass)
+    from lighthouse2_tpu_torch.scene.presets import cornell_box
+
+    res = {}
+    cfg = RenderConfig(width=16, height=16, spp_per_pass=1, max_path_length=8)
+    for bsdf in ("lambert", "disney"):
+        imgs = {}
+        for where in (dev, torch.device("cpu")):
+            api = RenderAPI.create("bdpt", dataclasses.replace(cfg, bsdf=bsdf),
+                                   device=where)
+            api.scene, api.camera = cornell_box(16, 16)
+            for _ in range(2):
+                api.render()
+            imgs[where.type] = api.get_image()
+        card, cpu = imgs[dev.type], imgs["cpu"]
+        res[bsdf] = dict(
+            pixels_close=float(np.isclose(card, cpu, rtol=1e-3, atol=1e-3)
+                               .all(-1).mean()),
+            mean_card=float(card.mean()), mean_cpu=float(cpu.mean()),
+            finite=bool(np.isfinite(card).all()))
+
+    scene, cam = _dimmed_cornell(16)
+    ecfg = RenderConfig(width=16, height=16, spp_per_pass=8,
+                        max_path_length=8, use_bvh=False,
+                        clamp_fireflies=False)
+    ds, view = scene.sync(dev, rebuild_bvh=False), cam.get_view(dev)
+    out = {}
+    for name, fn in (("pt", render_pass), ("bdpt", render_pass_bdpt)):
+        t0 = time.perf_counter()
+        st = AccumState.make(ecfg, dev)
+        for _ in range(est_passes):
+            st, _ = fn(ds, view, st, ecfg)
+        out[name] = finalize(st).cpu().numpy()
+        res[f"{name}_seconds"] = time.perf_counter() - t0
+    pt, bd = out["pt"], out["bdpt"]
+    res.update(mean_pt=float(pt.mean()), mean_bdpt=float(bd.mean()),
+               mean_rel_diff=float(abs(bd.mean() - pt.mean()) / pt.mean()),
+               mean_abs_diff_share=float(np.abs(bd - pt).mean()
+                                         / (pt.mean() + 1e-9)),
+               estimator_finite=bool(np.isfinite(bd).all()))
+    print("[bdpt reference] " + json.dumps(res), flush=True)
+    if res["lambert"]["pixels_close"] < 0.99:
+        raise AssertionError("BDPT Lambert: card and CPU disagree")
+    if (res["disney"]["pixels_close"] < BDPT_DISNEY_PIXELS_MIN
+            or not res["disney"]["finite"]):
+        raise AssertionError("BDPT Disney: card and CPU disagree")
+    if not (res["estimator_finite"] and res["mean_rel_diff"] < 0.04
+            and res["mean_abs_diff_share"] < 0.25):
+        raise AssertionError("BDPT and the path tracer disagree: "
+                             + json.dumps(res))
+    return res
+
+
+def parallel_path(host, cam, dev, size=512, path_len=16):
+    """Phase 17, [parallel]: ray-data-parallel rendering with NCCL and one
+    rank, against the unsharded classic pass and the single-process
+    gradient. Returns the numbers."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from lighthouse2_tpu_torch.core.types import RenderConfig
+    from lighthouse2_tpu_torch.diff.params import set_material_fields
+    from lighthouse2_tpu_torch.parallel.distributed import (
+        collective_bytes_per_pass, global_mesh, init_distributed,
+        measure_scaling)
+    from lighthouse2_tpu_torch.parallel.mesh import (
+        render_pass_sharded, train_step_sharded)
+    from lighthouse2_tpu_torch.render.kernels.trace import BUILD_DIR
+    from lighthouse2_tpu_torch.render.wavefront import AccumState, render_pass
+    from lighthouse2_tpu_torch.scene.presets import cornell_box
+
+    store = tempfile.mkdtemp(prefix="chip_smoke_dist_", dir=BUILD_DIR)
+    try:
+        world = init_distributed(f"file://{store}/store", world_size=1,
+                                 rank=0, device=dev)
+        res = dict(world_size=world, backend=dist.get_backend())
+        if res["backend"] != "nccl":
+            raise AssertionError(f"the card's group must be NCCL: {res}")
+        mesh = global_mesh()
+        cfg = RenderConfig(width=size, height=size, spp_per_pass=1,
+                           max_path_length=path_len)
+        scene, view = host.sync(dev), cam.get_view(dev)
+        # the first collective sets up the NCCL communicator: untimed
+        t0 = time.perf_counter()
+        render_pass_sharded(scene, view, AccumState.make(cfg, dev), cfg, mesh)
+        torch.cuda.synchronize(dev)
+        res["warmup_ms"] = (time.perf_counter() - t0) * 1e3
+        runs = dict(sharded=[], unsharded=[])
+        for kind in ("sharded", "unsharded", "unsharded", "sharded"):
+            st = AccumState.make(cfg, dev)
+            before = _counts()
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            if kind == "sharded":
+                st, stats = render_pass_sharded(scene, view, st, cfg, mesh)
+            else:
+                st, stats = render_pass(scene, view, st, cfg)
+            torch.cuda.synchronize(dev)
+            ms = (time.perf_counter() - t0) * 1e3
+            after = _counts()
+            runs[kind].append(dict(
+                ms=ms, acc=st.accumulator.cpu().numpy(),
+                totals=[int(stats["total_extension"]),
+                        int(stats["total_shadow"])],
+                launches={k: after[k] - before[k] for k in after}))
+        sh, un = runs["sharded"][0], runs["unsharded"][0]
+        res.update(
+            sharded_ms=[r["ms"] for r in runs["sharded"]],
+            unsharded_ms=[r["ms"] for r in runs["unsharded"]],
+            pixels_equal=float(np.isclose(sh["acc"], un["acc"], rtol=1e-6,
+                                          atol=0.0).all(-1).mean()),
+            totals=dict(sharded=sh["totals"], unsharded=un["totals"]),
+            launches_per_sharded_pass=[r["launches"]
+                                       for r in runs["sharded"]])
+
+        # the gradient of the material colours on a 64x64 Cornell box
+        tcfg = RenderConfig(width=64, height=64, spp_per_pass=1,
+                            max_path_length=4)
+        host_c, cam_c = cornell_box(64, 64)
+        ds, cview = host_c.sync(dev), cam_c.get_view(dev)
+        target = torch.zeros((64 * 64, 3), device=dev)
+        insert = lambda s, c: set_material_fields(s, color=c)
+        color = ds.materials.color.detach().clone().requires_grad_()
+        st, _ = render_pass(insert(ds, color), cview,
+                            AccumState.make(tcfg, dev), tcfg)
+        loss1 = torch.mean((st.accumulator[:, :3] / float(tcfg.spp_per_pass)
+                            - target) ** 2)
+        (g1,) = torch.autograd.grad(loss1, color)
+        loss_s, g_s = train_step_sharded(ds, cview, target, tcfg, mesh,
+                                         insert, ds.materials.color)
+        g1, g_s = g1.cpu().numpy(), g_s.cpu().numpy()
+        res.update(loss=loss_s.item(), loss_single=loss1.item(),
+                   grad_close=float(np.isclose(g_s, g1, rtol=1e-5,
+                                               atol=1e-9).mean()),
+                   grad_norm=float(np.linalg.norm(g1)))
+        res["scaling"] = measure_scaling(scene, view, cfg, passes=2, warmup=1)
+        res["collective_bytes"] = collective_bytes_per_pass(scene, view, cfg,
+                                                            mesh)
+        print("[parallel] " + json.dumps(res), flush=True)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    if res["pixels_equal"] != 1.0 or sh["totals"] != un["totals"]:
+        raise AssertionError("the sharded pass differs from the unsharded "
+                             f"one: {res}")
+    if (abs(res["loss"] - res["loss_single"]) > 1e-5 * abs(res["loss_single"])
+            or res["grad_close"] != 1.0 or not res["grad_norm"] > 0):
+        raise AssertionError(f"sharded gradients differ: {res}")
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1448,6 +1830,25 @@ def main() -> int:
     finally:
         shutil.rmtree(app_dir, ignore_errors=True)
 
+    bcfg = dataclasses.replace(cfg, path_regen=False)
+    bdpt = bdpt_path(host, cam, bcfg, dev, BDPT_PASSES)
+    print(f"[bdpt] {bdpt['mean_ms_per_pass']:.1f} ms a pass, "
+          f"{bdpt['mrays_per_s']:.3f} Mrays/s by the stats (every walk "
+          f"lane, dead or not), {bdpt['live_mrays_per_s']:.3f} Mrays/s of "
+          f"live-lane rays, peak "
+          f"{bdpt['max_memory_allocated'] / 1e9:.3f} GB on {card} (bathroom "
+          f"{size}x{size}, spp 1, path {path_len}, Lambert); "
+          f"{bdpt['profile']['device_ms']:.1f} ms of device time, "
+          f"{bdpt['profile']['device_launches']} device launches; Disney "
+          f"{bdpt['disney']['ms']:.1f} ms", flush=True)
+    bdpt_reference(dev)
+    par = parallel_path(host, cam, dev, size, path_len)
+    print(f"[parallel] sharded {min(par['sharded_ms']):.1f} ms, unsharded "
+          f"{min(par['unsharded_ms']):.1f} ms a pass on {card} (one NCCL "
+          f"rank, bathroom {size}x{size}, classic, path {path_len}); "
+          f"{par['collective_bytes']['total_bytes']} bytes all-reduced a "
+          "pass", flush=True)
+
     rows = []
     for name, batch, line, sym, key in (
             ("trace_closest", "bounce1", 229, "closest_kernel", "closest_ms"),
@@ -1471,9 +1872,14 @@ def main() -> int:
                 probe_pixel_grid=probe_res["launches_probe_grid"][name],
                 gbuffer_views=probe_res["launches_gbuffer"][name],
                 viewer_session=viewer["launches"][name]),
+            launches_bdpt_per_pass=bdpt["launches_per_pass"][-1][name],
+            launches_sharded_per_pass=par["launches_per_sharded_pass"][-1][
+                name],
+            bdpt_batch_ms={bt: b[key] for bt, b in bdpt["batches"].items()},
             main_path_ms_per_launch=dict(
                 lambert=lambert_prof["kernel_ms_per_launch"][sym],
-                disney=disney_prof["kernel_ms_per_launch"][sym]),
+                disney=disney_prof["kernel_ms_per_launch"][sym],
+                bdpt=bdpt["profile"]["kernel_ms_per_launch"][sym]),
             max_abs_err=k["max_abs_err"],
             ms_by_batch={bt: kern[name][bt]["ms"] for bt in kern[name]},
             single_level_ms={bt: single_ms[bt][key]

@@ -9,8 +9,8 @@ Counterpart of lighthouse2_tpu/apps/render_cli.py, with its flags, plus
 versions on the host). Prints per-pass stats (rays, Mrays/s) like the
 reference's ImGui panel (apps/imguiapp/main.cpp:222-233) and returns 0.
 `--no-bvh` syncs the scene without a BVH and traces by brute force
-(core/geometry.py), as in JAX. Differences: a core the port has not ported
-(bdpt) raises from create_core; the default framing reads the world
+(core/geometry.py), as in JAX; `--core bdpt` renders with the
+bidirectional path tracer. Difference: the default framing reads the world
 triangles on the host instead of syncing the scene.
 """
 from __future__ import annotations
@@ -35,7 +35,7 @@ def main(argv=None) -> int:
     ap.add_argument("--bsdf", choices=["lambert", "disney"], default="lambert")
     ap.add_argument("--core", default="wavefront",
                     help="render core name (wavefront|primeref|minimal|"
-                         "preview|wavefront_filter)")
+                         "preview|wavefront_filter|bdpt)")
     ap.add_argument("--no-bvh", action="store_true")
     ap.add_argument("--camera", default=None, help="camera JSON to load")
     ap.add_argument("--save-camera", default=None)

@@ -1,16 +1,17 @@
 """The render-core contract (CoreAPI_Base, core_api_base.h:78-114).
 
 Counterpart of lighthouse2_tpu/render/cores/base.py: register_core,
-create_core and RenderCore (setting). A core is a Python class registered
-by name; create_core(name) is the analog of loading a core DLL by name
-(core_api_base.cpp:119-132). Differences: the bidirectional ("bdpt") core
-is not ported yet, and create_core raises ValueError for it as for any
-unknown name; RenderCore.set_target and StageTimer are not ported (no
-caller in either package needs them).
+create_core, RenderCore (set_target, on_target_changed, setting) and
+StageTimer. A core is a Python class registered by name; create_core(name)
+is the analog of loading a core DLL by name (core_api_base.cpp:119-132).
+StageTimer times on the host clock, as JAX's does; on a card a stage ends
+where the caller synchronizes.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import time
 
 import numpy as np
 
@@ -46,6 +47,16 @@ class RenderCore:
         self.config = config
         self.stats: dict = {}
 
+    def set_target(self, width: int, height: int, spp: int = 1):
+        """SetTarget (core_api_base.h:83): resize the render target and
+        drop whatever state depends on it."""
+        self.config = dataclasses.replace(
+            self.config, width=width, height=height, spp_per_pass=spp)
+        self.on_target_changed()
+
+    def on_target_changed(self):
+        pass
+
     def setting(self, name: str, value):
         """String-keyed runtime settings (rendercore.cpp:597-615 accepts
         the ones it knows and ignores the rest)."""
@@ -65,3 +76,19 @@ class RenderCore:
     def shutdown(self):
         pass
 
+
+class StageTimer:
+    """Host-side stage timing (the cudaEvent / CoreStats analog): the
+    seconds spent in each named stage, summed over its entries."""
+
+    def __init__(self):
+        self.times = {}
+
+    @contextlib.contextmanager
+    def stage(self, name):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.times[name] = self.times.get(name, 0.0) + (
+                time.perf_counter() - t0)

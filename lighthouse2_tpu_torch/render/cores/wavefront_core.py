@@ -10,7 +10,10 @@ Counterpart of lighthouse2_tpu/render/cores/wavefront_core.py:
     split into direct and indirect, filtered with SVGF and TAA
     (RenderCore_Optix7Filter);
   - "preview": primary rays only, albedo x (headlight N.L + ambient), the
-    sky on a miss (the RenderCore_SoftRasterizer-class core).
+    sky on a miss (the RenderCore_SoftRasterizer-class core);
+  - "bdpt": the bidirectional path tracer of render/bdpt.py
+    (RenderCore_OptixPrime_BDPT), without Russian roulette or firefly
+    clamp.
 Differences: the cores run eagerly on the device the scene is on and wait
 with torch.cuda.synchronize where the JAX package calls
 jax.block_until_ready; MinimalCore's .at[idx].max is scatter_reduce "amax";
@@ -18,8 +21,11 @@ PreviewCore traces through the port's _trace (the closest-hit kernel on a
 card, one launch a render), _refine and get_shading_data;
 FilteredWavefrontCore's stats add "pass_time" (render_pass) and
 "filter_time" (SVGF + TAA + unsharpen), each closed by a synchronize, and
-the per-bounce ray counts as WavefrontCore's do. The
-bidirectional core is not ported yet.
+the per-bounce ray counts as WavefrontCore's do; FilteredWavefrontCore has
+no `state` attribute (JAX's is never set), so its on_target_changed drops
+the filter, TAA, previous-view and frame-index state; BDPTCore's stats are
+WavefrontCore's keys, the per-bounce counts included (the totals in slot
+0, as render_pass_bdpt returns them).
 """
 from __future__ import annotations
 
@@ -47,13 +53,18 @@ class WavefrontCore(RenderCore):
         super().__init__(config)
         self.state = None
 
+    def on_target_changed(self):
+        self.state = None
+
+    def _pass(self, device_scene, view):
+        return render_pass(device_scene, view, self.state, self.config)
+
     def render(self, device_scene, view, converge: bool = True) -> dict:
         if self.state is None or not converge:
             # Convergence::Restart
             self.state = AccumState.make(self.config, device_scene.device)
         t0 = time.perf_counter()
-        self.state, stats = render_pass(device_scene, view, self.state,
-                                        self.config)
+        self.state, stats = self._pass(device_scene, view)
         _sync(device_scene.device)
         wall = time.perf_counter() - t0
         ext = int(stats["total_extension"])
@@ -100,6 +111,11 @@ class FilteredWavefrontCore(RenderCore):
         self.taa_state = None
         self.image = None
         self.prev_view = None     # the previous frame's (jittered) view
+        self.frame_idx = 0
+
+    def on_target_changed(self):
+        self.filter_state = self.taa_state = None
+        self.prev_view = None
         self.frame_idx = 0
 
     def render(self, device_scene, view, converge: bool = True) -> dict:
@@ -157,6 +173,22 @@ class FilteredWavefrontCore(RenderCore):
 
     def get_image(self) -> np.ndarray:
         return self.image
+
+
+@register_core("bdpt")
+class BDPTCore(WavefrontCore):
+    """The bidirectional path tracer (RenderCore_OptixPrime_BDPT,
+    render/bdpt.py) with validation-grade settings: no Russian roulette and
+    no firefly clamp, as the reference's conservative BDPT core."""
+
+    def __init__(self, config: RenderConfig):
+        config = dataclasses.replace(config, russian_roulette=False,
+                                     clamp_fireflies=False)
+        super().__init__(config)
+
+    def _pass(self, device_scene, view):
+        from lighthouse2_tpu_torch.render.bdpt import render_pass_bdpt
+        return render_pass_bdpt(device_scene, view, self.state, self.config)
 
 
 @register_core("primeref")

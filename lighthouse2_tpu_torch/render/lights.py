@@ -1,20 +1,30 @@
 """Light importance sampling, vectorized over all lights per ray.
 
 Counterpart of lighthouse2_tpu/render/lights.py (potential_contributions,
-calculate_light_pdf, light_pick_prob, sky_pick_prob, random_point_on_light)
-for the four analytic light types and the sky as an NEE light (IBL).
+calculate_light_pdf, light_pick_prob, sky_pick_prob, random_point_on_light,
+and the emission sampling of bidirectional transport: sample_emission,
+emission_pick_prob) for the four analytic light types and the sky as an NEE
+light (IBL).
 Per-light-per-ray intermediates are [L, N], rays on the minor axis, as in
 the JAX package. Unified light index space: [0, LT) area, [LT, LT+LP)
 point, then spot, then directional, then (with IBL) the sky as the last
 slot. potential_contributions returns the potentials only, where the JAX
 function also returns the slot layout, which no caller reads.
+sample_emission finds its energy-proportional pick with torch.searchsorted
+over the light CDF, where JAX counts `cdf < r0 * tot` over an [L, N]
+matrix: the same index (the first CDF entry >= r0 * tot), without a matrix
+of lights x lanes. The actual light counts are the static s_tri / s_point
+ints (JAX's device scalars n_tri / n_point).
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
-from lighthouse2_tpu_torch.core.geometry import dot
-from lighthouse2_tpu_torch.core.sampling import random_barycentrics
+from lighthouse2_tpu_torch.core.geometry import dot, normalize, tangent_to_world
+from lighthouse2_tpu_torch.core.sampling import (
+    cosine_hemisphere, random_barycentrics)
 from lighthouse2_tpu_torch.render.sky import sample_sky
 from lighthouse2_tpu_torch.scene.device_scene import DeviceLights, DeviceSky
 
@@ -286,3 +296,88 @@ def random_point_on_light(lights: DeviceLights, r0, r1, i_pos, n,
     light_pdf = torch.where(s > 0, light_pdf, 0.0)
     return dict(point=torch.stack([px, py, pz], dim=-1), light_pdf=light_pdf,
                 pick_prob=pick_prob, color=torch.stack(col, dim=-1), ltri=ltri)
+
+
+# ---------------------------------------------------------------------------
+# Emission sampling for bidirectional transport (Sample_Le analog,
+# lights_shared.h:267-409)
+# ---------------------------------------------------------------------------
+
+def _emission_energies(lights: DeviceLights):
+    """Energies of the emission pick's slots: [area..., point...], padding
+    rows masked to 0."""
+    lt = lights.tri_v0.shape[0]
+    lp = lights.point_pos.shape[0]
+    dev = lights.tri_energy.device
+    tri = lights.tri_energy * (torch.arange(lt, device=dev) < lights.s_tri)
+    point = (lights.point_energy
+             * (torch.arange(lp, device=dev) < lights.s_point))
+    return tri, point
+
+
+def sample_emission(lights: DeviceLights, r0, r1, r2, r3):
+    """Sample a light-subpath origin and emission direction.
+
+    The light pick is energy-proportional over area and point lights (spot
+    and directional lights contribute through the eye walk's strategies).
+    Area: a uniform point on the triangle, cosine emission about its
+    normal; point: a uniform sphere. Returns a dict of [N] / [N,3] tensors:
+    origin, dir, normal (dir for a point light), radiance, pdf_pos (area
+    measure x pick probability; the pick probability alone for a delta
+    light), pdf_dir (solid angle), ltri (the picked area-light slot, or -1),
+    delta_pos (a point light) and pick_prob."""
+    lt = lights.tri_v0.shape[0]
+    lp = lights.point_pos.shape[0]
+    en = torch.cat(_emission_energies(lights), 0)          # [lt+lp]
+    tot = en.sum()
+    cdf = torch.cumsum(en, 0)
+    pick = torch.searchsorted(cdf, (r0 * tot).contiguous())
+    pick = torch.clamp(pick, 0, lt + lp - 1)
+    pick_prob = en[pick] / torch.where(tot > 0, tot, 1.0)
+
+    is_area = pick < lt
+    a_i = torch.clamp(pick, 0, lt - 1)
+    p_i = torch.clamp(pick - lt, 0, lp - 1)
+
+    # area: uniform point on the triangle, cosine emission about its normal
+    bu, bv = random_barycentrics(r1)
+    bw = 1.0 - bu - bv
+    apos = (bu[:, None] * lights.tri_v0[a_i] + bv[:, None] * lights.tri_v1[a_i]
+            + bw[:, None] * lights.tri_v2[a_i])
+    an = lights.tri_n[a_i]
+    adir = normalize(tangent_to_world(cosine_hemisphere(r2, r3), an))
+    acos = torch.clamp(dot(adir, an), min=0.0)
+    apdf_dir = acos * (1.0 / math.pi)
+    apdf_pos = pick_prob / torch.clamp(lights.tri_area[a_i], min=1e-12)
+
+    # point: uniform sphere
+    z = 1.0 - 2.0 * r2
+    rr = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
+    phi = 2.0 * math.pi * r3
+    pdir = torch.stack([rr * torch.cos(phi), rr * torch.sin(phi), z], -1)
+    ppos = lights.point_pos[p_i]
+
+    area = is_area[:, None]
+    return dict(
+        origin=torch.where(area, apos, ppos),
+        dir=torch.where(area, adir, pdir),
+        normal=torch.where(area, an, pdir),
+        radiance=torch.where(area, lights.tri_radiance[a_i],
+                             lights.point_radiance[p_i]),
+        pdf_pos=torch.where(is_area, apdf_pos, pick_prob),
+        pdf_dir=torch.where(is_area, apdf_dir, 1.0 / (4.0 * math.pi)),
+        ltri=torch.where(is_area, a_i, -1),
+        delta_pos=~is_area,
+        pick_prob=pick_prob,
+    )
+
+
+def emission_pick_prob(lights: DeviceLights, ltri):
+    """The probability with which sample_emission picks area light `ltri`
+    (0 where ltri < 0): BDPT's MIS needs it for the ratios between the
+    strategies with and without a light-sampled vertex."""
+    lt = lights.tri_v0.shape[0]
+    tri, point = _emission_energies(lights)
+    tot = tri.sum() + point.sum()
+    e = lights.tri_energy[torch.clamp(ltri, 0, lt - 1)]
+    return torch.where(ltri >= 0, e / torch.where(tot > 0, tot, 1.0), 0.0)

@@ -1,16 +1,15 @@
 """Skydome lookup (tools_shared.h:185-192, Debevec equirect mapping) and IBL
 importance sampling (host_skydome.cpp:20-47: pdf/cdf tables built at sync).
 
-Counterpart of lighthouse2_tpu/render/sky.py (sample_skydome,
-build_sky_cdf as a numpy copy, sample_sky, sky_pixel_pdf_to_solid,
-sky_pdf). The IBL design is inverse-CDF over the
+Counterpart of lighthouse2_tpu/render/sky.py (sample_skydome with its
+bilinear option, build_sky_cdf as a numpy copy, sample_sky,
+sky_pixel_pdf_to_solid, sky_pdf). The IBL design is inverse-CDF over the
 equirect pixel grid: pixel pdf proportional to luminance * sin(theta), a
 marginal CDF over rows and a conditional CDF per row; sampling rescales the
 uniforms inside the chosen segment, and the solid-angle pdf of a texel is
 p(pixel) / ((2 pi / W)(pi / H) sin(theta)).
 
-Differences from the JAX package: sample_skydome has no bilinear option
-(nothing in the port samples the sky filtered); sample_sky does not gather each lane's
+Difference from the JAX package: sample_sky does not gather each lane's
 whole conditional CDF row ([N, W], 2.1 GB for a 2048-wide sky at 262,144
 lanes). The row index comes from torch.searchsorted over cdf_rows, the
 column from a batched binary search of ceil(log2 W) gathers into the
@@ -29,16 +28,34 @@ import torch
 from lighthouse2_tpu_torch.scene.device_scene import DeviceSky
 
 
-def sample_skydome(sky: DeviceSky, d):
-    """Equirect lookup of the nearest texel for directions d [N,3] ->
-    radiance [N,3]: u = w/2 (1 + atan2(D.x, -D.z)/pi), v = h acos(D.y)/pi."""
+def sample_skydome(sky: DeviceSky, d, bilinear: bool = False):
+    """Equirect lookup for directions d [N,3] -> radiance [N,3]:
+    u = w/2 (1 + atan2(D.x, -D.z)/pi), v = h acos(D.y)/pi. The nearest
+    texel by default (tools_shared.h:185-192); bilinear=True blends the
+    four neighbours, wrapping in u and clamping in v."""
     h, w = sky.pixels.shape[0], sky.pixels.shape[1]
     inv_pi = 1.0 / math.pi
     uf = w * 0.5 * (1.0 + torch.atan2(d[..., 0], -d[..., 2]) * inv_pi)
     vf = h * torch.arccos(torch.clamp(d[..., 1], -1.0, 1.0)) * inv_pi
-    u = torch.clamp(uf.to(torch.int64), 0, w - 1)
-    v = torch.clamp(vf.to(torch.int64), 0, h - 1)
-    return sky.pixels[v, u]
+    if not bilinear:
+        u = torch.clamp(uf.to(torch.int64), 0, w - 1)
+        v = torch.clamp(vf.to(torch.int64), 0, h - 1)
+        return sky.pixels[v, u]
+    uf = uf - 0.5
+    vf = vf - 0.5
+    u0 = torch.floor(uf)
+    v0 = torch.floor(vf)
+    fu = (uf - u0)[..., None]
+    fv = (vf - v0)[..., None]
+    u0 = u0.to(torch.int64)
+    v0 = v0.to(torch.int64)
+    u0w = torch.remainder(u0, w)
+    u1w = torch.remainder(u0 + 1, w)
+    v0c = torch.clamp(v0, 0, h - 1)
+    v1c = torch.clamp(v0 + 1, 0, h - 1)
+    p = sky.pixels
+    return ((p[v0c, u0w] * (1 - fu) + p[v0c, u1w] * fu) * (1 - fv)
+            + (p[v1c, u0w] * (1 - fu) + p[v1c, u1w] * fu) * fv)
 
 
 def build_sky_cdf(pixels: np.ndarray):

@@ -44,8 +44,9 @@ Differences from the JAX package:
     BVH) takes core/geometry.py's brute force, on detached rays as the
     kernels take them; "cluster" raises, the cluster tiles are not ported;
   - filter_enabled with path_regen raises ValueError where JAX asserts;
-  - path_idx shards (the parallel layer) and scene_sharded are not ported
-    yet; render_pass rejects configs that ask for them.
+  - scene_sharded is not ported yet; render_pass rejects configs that ask
+    for it. trace_paths takes the path_idx shards of the parallel layer
+    (parallel/mesh.py) as JAX's does.
 """
 from __future__ import annotations
 
@@ -518,10 +519,14 @@ def _pass_stats(ext, conn, **extra):
 
 
 def trace_paths(scene, view, config: RenderConfig, sample_base: int,
-                cam_seed: int):
+                cam_seed: int, path_idx=None):
     """The classic executor: one wavefront of W*H*spp fresh paths traced for
     max_path_length bounces. Returns (acc_delta [W*H,4], cam_seed', stats);
     stats hold device tensors.
+
+    `path_idx` (int64 [n]) traces only those global path indices, a shard
+    of [0, W*H*spp) (the parallel layer): their results are scatter-added
+    into the [W*H, 4] accumulator by pixel, and no filter_aux is returned.
 
     A bounce whose lanes are all dead is skipped, as the reference ends its
     loop when no extension ray is left (rendercore.cpp:723-726), but still
@@ -536,7 +541,7 @@ def trace_paths(scene, view, config: RenderConfig, sample_base: int,
     world position 1e30)."""
     wh = config.width * config.height
     spp = config.spp_per_pass
-    paths = generate_eye_rays(view, config, sample_base)
+    paths = generate_eye_rays(view, config, sample_base, path_idx)
     n = paths["path_idx"].shape[0]
     dev = view.pos.device
     acc = torch.zeros((n, 4), dtype=torch.float32, device=dev)
@@ -557,9 +562,13 @@ def trace_paths(scene, view, config: RenderConfig, sample_base: int,
         paths, acc, cam_seed, n_conn = bounce_step(
             scene, view, config, paths, acc, cam_seed, li)
         conn.append(n_conn)
-    unt = lambda x: untile_image(x.reshape(spp, wh, -1), config)
     stats = _pass_stats(ext, conn, primary_rays=torch.tensor(
         n, dtype=torch.int32))
+    if path_idx is not None:
+        acc_px = torch.zeros((wh, 4), dtype=torch.float32,
+                             device=dev).index_add(0, paths["pixel"], acc)
+        return acc_px, cam_seed, stats
+    unt = lambda x: untile_image(x.reshape(spp, wh, -1), config)
     if config.filter_enabled:
         stats["filter_aux"] = dict(
             indirect=unt(paths["acc_ind"]).sum(0),
