@@ -142,7 +142,34 @@ Phases; any failure exits non-zero before the result line is printed:
      sharded pass; train_step_sharded on a 64x64 Cornell box (material
      colours) against the single-process gradient, loss and gradients
      within rtol 1e-5; measure_scaling's row and collective_bytes_per_pass;
-     the group destroyed at the end.
+     the group destroyed at the end;
+ 18. [scene shard] scene-sharded rendering (parallel/scene_shard.py).
+     (a) init_distributed with NCCL, world size 1, a 1x1 mesh: the bathroom
+     512x512, classic, spp 1, path 16 through render_pass_scene_sharded
+     (its one shard's numpy tree built first, timed) against the unsharded
+     classic render_pass, one untimed pass, then sharded, unsharded,
+     unsharded, sharded: pixels off < FRAC_BAD_MAX and mean relative error
+     < MEAN_REL_MAX (__graft_entry__.py:108-119: the two passes walk
+     different trees, so only t-ties may differ), stats totals within
+     TIE_SHARE, 16 + 16 kernel launches a sharded pass; peak memory, the
+     shard's bytes against the replicated triangles and tree, the bytes the
+     collectives take a pass by axis, one profiled pass; both kernels on an
+     empty shard's one-leaf tree (every primary ray a miss, as in the plain
+     walk); the 1x1 gradient
+     step of a SHARD_GRAD_SIZE^2 Cornell box (material colours, per-vertex
+     offsets). (b) this script started SHARD_MESH[0] * SHARD_MESH[1] times
+     as the gloo ranks of a SHARD_MESH mesh whose tensors all lie on
+     cuda:0 (NCCL refuses two ranks on one card; gloo stages each
+     collective through the host, so its time is not NCCL's cost), a
+     file:// store under build/, joined within SHARD_JOIN_TIMEOUT: each
+     rank cuts its shard and builds its tree from the bathroom on the
+     host, one untimed and SHARD_PASSES timed passes (ms the slowest
+     rank's), 16 + 16 launches a pass on every rank, per-rank peak memory
+     and shard bytes; the image within the bounds of (a) against the
+     unsharded pass, and the Cornell step's loss within rtol 1e-5 and
+     gradients (the per-shard vertex gradients mapped back through gid)
+     within rtol 1e-4 / atol 1e-6 of the largest of (a)'s 1x1 step, both
+     shards' vertex gradients nonzero.
 It then prints one JSON line of per-kernel numbers, the card's name and
 power limit, and last the result line {"ok": true, "device": {...}}.
 """
@@ -192,6 +219,13 @@ FILTER_PIXELS_MIN = 0.99
 BDPT_PASSES = 3            # timed api.render() calls of [bdpt]
 BDPT_EST_PASSES = 24       # passes of each estimator (tests/test_bdpt.py:73-74)
 BDPT_DISNEY_PIXELS_MIN = 0.95
+SHARD_MESH = (2, 2)        # ("rays", "scene") of [scene shard] (b)
+SHARD_PASSES = 2           # timed passes of each [scene shard] (b) rank
+SHARD_JOIN_TIMEOUT = 300   # seconds for the (b) ranks together
+SHARD_GRAD_SIZE = 64       # Cornell box side of the [scene shard] gradient
+FRAC_BAD_MAX = 5e-3        # __graft_entry__.py:118, pixels off
+MEAN_REL_MAX = 1e-4        # __graft_entry__.py:118, mean relative error
+TIE_SHARE = 1e-3           # stats totals: a t-tie may change a winner
 
 
 def _sh(cmd):
@@ -1714,6 +1748,356 @@ def parallel_path(host, cam, dev, size=512, path_len=16):
     return res
 
 
+def _tensor_bytes(*objs):
+    """Bytes of every tensor in the given tensors, dicts and dataclasses."""
+    import torch
+    n = 0
+    for obj in objs:
+        if isinstance(obj, torch.Tensor):
+            n += obj.numel() * obj.element_size()
+        elif isinstance(obj, dict):
+            n += _tensor_bytes(*obj.values())
+        elif dataclasses.is_dataclass(obj):
+            n += _tensor_bytes(*(getattr(obj, f.name)
+                                 for f in dataclasses.fields(obj)))
+    return n
+
+
+def _image_agreement(got, want):
+    """__graft_entry__.py:108-119's measure of two accumulators: the share
+    of pixels off by more than 1e-3 of the largest value, and the mean
+    absolute difference over that value."""
+    import numpy as np
+    scale = max(float(np.abs(want).max()), 1e-6)
+    diff = np.abs(got - want)
+    return dict(frac_bad=float((diff.max(-1) > 1e-3 * scale).mean()),
+                mean_rel=float(diff.mean() / scale))
+
+
+def _shard_grad_inputs(dev, k, size=SHARD_GRAD_SIZE):
+    """The [scene shard] gradient step's inputs: a size^2 Cornell box,
+    path 4, classic, its material colours and zero per-vertex offsets of
+    one of k shards as parameters, a zero target."""
+    import torch
+    from lighthouse2_tpu_torch.core.types import RenderConfig
+    from lighthouse2_tpu_torch.scene.presets import cornell_box
+    host, cam = cornell_box(size, size)
+    ds, view = host.sync(dev), cam.get_view(dev)
+    cfg = RenderConfig(width=size, height=size, spp_per_pass=1,
+                       max_path_length=4)
+    tk = -(-ds.tris.count // k)
+    params = dict(color=ds.materials.color,
+                  offset=torch.zeros((tk, 3, 3), device=dev))
+    return ds, view, cfg, params, torch.zeros((size * size, 3), device=dev)
+
+
+def _shard_insert(scene, sh, p):
+    """Colours into the replicated scene, vertex offsets into the shard
+    (diff/params.py displace_vertices' arithmetic)."""
+    from lighthouse2_tpu_torch.diff.params import set_material_fields
+    off = p["offset"]
+    v0 = sh["v0"] + off[:, 0]
+    v1 = sh["v0"] + sh["e1"] + off[:, 1]
+    v2 = sh["v0"] + sh["e2"] + off[:, 2]
+    return (set_material_fields(scene, color=p["color"]),
+            dict(sh, v0=v0, e1=v1 - v0, e2=v2 - v0))
+
+
+def _sync(dev):
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _peak_memory(dev, reset=False):
+    """Peak device memory since the last reset (None on the CPU)."""
+    import torch
+    if dev.type != "cuda":
+        return None
+    if reset:
+        torch.cuda.reset_peak_memory_stats(dev)
+    return torch.cuda.max_memory_allocated(dev)
+
+
+def _empty_shard_check(scene, view, cfg, dev):
+    """Both kernels on an empty shard's tree (k = T + 1, the last shard: a
+    one-leaf root over a degenerate triangle) for the primary rays: every
+    lane a miss and unoccluded, as in the plain walk."""
+    import torch
+    from lighthouse2_tpu_torch.bvh.wide import wide_intersect, wide_occluded
+    from lighthouse2_tpu_torch.parallel.scene_shard import build_shard_bvh
+    from lighthouse2_tpu_torch.render.kernels.trace import (
+        trace_closest, trace_occluded)
+    from lighthouse2_tpu_torch.render.wavefront import generate_eye_rays
+    t = scene.tris.count
+    tree = build_shard_bvh(scene.tris, t + 1, t, dev)
+    paths = generate_eye_rays(view, cfg, 0)
+    o, d = paths["origin"].contiguous(), paths["dir"].contiguous()
+    prim = trace_closest(o, d, 1e30, tree)[1]
+    occ = trace_occluded(o, d, 1e30, tree)
+    res = dict(root_count=tree.count.tolist(),
+               misses=int((prim == -1).sum()), occluded=int(occ.sum()),
+               plain_equal=bool(
+                   (prim == wide_intersect(o, d, tree, t_max=1e30)[1]).all()
+                   and (occ == wide_occluded(o, d, 1e30, tree)).all()),
+               rays=int(prim.numel()))
+    _sync(dev)
+    return res
+
+
+def scene_shard_rank(rank, store, inputs, out, device):
+    """One rank of [scene shard] (b): a gloo rank of the SHARD_MESH group
+    whose tensors all lie on `device` (cuda:0 on the card). Renders the bathroom from `inputs` (its
+    shard cut and its tree built here), takes the Cornell gradient step and
+    saves what it saw to `out`."""
+    import torch
+    import torch.distributed as dist
+    from lighthouse2_tpu_torch.parallel.distributed import init_distributed
+    from lighthouse2_tpu_torch.parallel.mesh import _to, make_mesh2d
+    from lighthouse2_tpu_torch.parallel.scene_shard import (
+        collective_bytes_per_pass, render_pass_scene_sharded, shard_scene,
+        shard_triangle_arrays, train_step_scene_sharded)
+    from lighthouse2_tpu_torch.render.wavefront import AccumState
+
+    dev = torch.device(device)
+    n_ray, n_scene = SHARD_MESH
+    init_distributed(f"file://{store}", n_ray * n_scene, rank,
+                     backend="gloo", device=dev)
+    try:
+        mesh = make_mesh2d(n_ray, n_scene, device=dev)
+        inp = torch.load(inputs, weights_only=False)
+        cfg = inp["config"]
+        t0 = time.perf_counter()
+        scene, sh, bvh = shard_scene(inp["scene"], mesh)
+        view = _to(inp["view"], dev)
+        _sync(dev)
+        res = dict(rank=rank, coords=mesh.coords,
+                   shard_seconds=time.perf_counter() - t0,
+                   shard_bytes=_tensor_bytes(sh, bvh),
+                   shard_triangles=int((sh["gid"] >= 0).sum()))
+        _peak_memory(dev, reset=True)
+        ms, launches = [], []
+        for i in range(1 + SHARD_PASSES):          # one untimed warm-up
+            before = _counts()
+            _sync(dev)
+            dist.barrier()
+            t0 = time.perf_counter()
+            state, stats = render_pass_scene_sharded(
+                scene, view, AccumState.make(cfg, dev), cfg, mesh, sh=sh,
+                shard_bvh=bvh)
+            _sync(dev)
+            dt = torch.tensor([time.perf_counter() - t0], dtype=torch.float64)
+            dist.all_reduce(dt, op=dist.ReduceOp.MAX)
+            after = _counts()
+            launches.append({k: after[k] - before[k] for k in after})
+            if i:
+                ms.append(dt.item() * 1e3)
+        live = int((stats["extension_rays"] > 0).sum())
+        res.update(ms=ms, launches_per_pass=launches,
+                   max_memory_allocated=_peak_memory(dev),
+                   totals=[int(stats["total_extension"]),
+                           int(stats["total_shadow"])],
+                   collective_bytes=collective_bytes_per_pass(cfg, mesh, live),
+                   accumulator=state.accumulator.cpu())
+        del state, scene, sh, bvh
+
+        ds, gview, gcfg, params, target = _shard_grad_inputs(dev, n_scene)
+        loss, grads = train_step_scene_sharded(ds, gview, target, gcfg, mesh,
+                                               _shard_insert, params)
+        res.update(loss=loss.item(),
+                   grads={k: g.cpu() for k, g in grads.items()},
+                   gid=shard_triangle_arrays(ds.tris, n_scene)["gid"][
+                       mesh.coords[1]].cpu())
+        torch.save(res, out)
+    finally:
+        dist.destroy_process_group()
+
+
+def _spawn_shard_ranks(directory, inputs, dev):
+    """Start the SHARD_MESH gloo ranks (this script, scene_shard_rank),
+    join them within SHARD_JOIN_TIMEOUT and return their results. Any rank
+    that fails or outlives the timeout fails the phase; none is left
+    running."""
+    import torch
+    n = SHARD_MESH[0] * SHARD_MESH[1]
+    store = os.path.join(directory, "store")
+    env = dict(os.environ, GLOO_SOCKET_IFNAME="lo", OMP_NUM_THREADS="2")
+    logs = [open(os.path.join(directory, f"rank{r}.log"), "w")
+            for r in range(n)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--scene-shard-rank",
+         str(r), store, inputs, os.path.join(directory, f"rank{r}.pt"),
+         str(dev)],
+        stdout=logs[r], stderr=subprocess.STDOUT, env=env) for r in range(n)]
+    deadline = time.monotonic() + SHARD_JOIN_TIMEOUT
+    try:
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 1.0))
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"the {n} [scene shard] ranks did not finish "
+                             f"in {SHARD_JOIN_TIMEOUT} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            with open(os.path.join(directory, f"rank{r}.log")) as fh:
+                raise AssertionError(f"[scene shard] rank {r} failed:\n"
+                                     + fh.read()[-6000:])
+    return [torch.load(os.path.join(directory, f"rank{r}.pt"),
+                       weights_only=False) for r in range(n)]
+
+
+def scene_shard_path(host, cam, dev, size=512, path_len=16):
+    """Phase 18, [scene shard]: scene-sharded rendering. (a) one NCCL rank,
+    a 1x1 mesh: the bathroom through render_pass_scene_sharded against the
+    unsharded classic render_pass, and the single-process Cornell gradient
+    step; (b) SHARD_MESH gloo ranks on cuda:0 (spawn_shard_ranks), held
+    against (a). Returns the numbers."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from lighthouse2_tpu_torch.core.types import RenderConfig
+    from lighthouse2_tpu_torch.parallel.distributed import init_distributed
+    from lighthouse2_tpu_torch.parallel.mesh import _to, make_mesh2d
+    from lighthouse2_tpu_torch.parallel.scene_shard import (
+        collective_bytes_per_pass, render_pass_scene_sharded, shard_scene,
+        train_step_scene_sharded)
+    from lighthouse2_tpu_torch.render.kernels.trace import BUILD_DIR
+    from lighthouse2_tpu_torch.render.wavefront import AccumState, render_pass
+
+    cfg = RenderConfig(width=size, height=size, spp_per_pass=1,
+                       max_path_length=path_len)
+    scene, view = host.sync(dev), cam.get_view(dev)
+    work = tempfile.mkdtemp(prefix="chip_smoke_shard_", dir=BUILD_DIR)
+    try:
+        init_distributed(f"file://{work}/store1", world_size=1, rank=0,
+                         device=dev)
+        res = dict(backend=dist.get_backend())
+        if res["backend"] != "nccl":
+            raise AssertionError(f"(a) must run on NCCL: {res}")
+        mesh = make_mesh2d(1, 1, device=dev)
+        t0 = time.perf_counter()
+        srep, sh, bvh = shard_scene(scene, mesh)
+        _sync(dev)
+        res["shard_seconds"] = time.perf_counter() - t0
+        res["bytes"] = dict(
+            shard=_tensor_bytes(sh, bvh),
+            replicated_tris_and_bvh=_tensor_bytes(scene.tris, scene.bvh),
+            replicated_rest=_tensor_bytes(srep))
+        run = lambda: render_pass_scene_sharded(
+            srep, view, AccumState.make(cfg, dev), cfg, mesh, sh=sh,
+            shard_bvh=bvh)
+        t0 = time.perf_counter()
+        run()                  # sets up the communicators: untimed
+        _sync(dev)
+        res["warmup_ms"] = (time.perf_counter() - t0) * 1e3
+        _peak_memory(dev, reset=True)
+        runs = dict(sharded=[], unsharded=[])
+        for kind in ("sharded", "unsharded", "unsharded", "sharded"):
+            before = _counts()
+            _sync(dev)
+            t0 = time.perf_counter()
+            if kind == "sharded":
+                st, stats = run()
+            else:
+                st, stats = render_pass(scene, view, AccumState.make(cfg, dev),
+                                        cfg)
+            _sync(dev)
+            ms = (time.perf_counter() - t0) * 1e3
+            after = _counts()
+            runs[kind].append(dict(
+                ms=ms, acc=st.accumulator.cpu().numpy(),
+                live=int((stats["extension_rays"] > 0).sum()),
+                totals=[int(stats["total_extension"]),
+                        int(stats["total_shadow"])],
+                launches={k: after[k] - before[k] for k in after}))
+        res["max_memory_allocated"] = _peak_memory(dev)
+        sh_run, un = runs["sharded"][-1], runs["unsharded"][0]
+        res.update(
+            sharded_ms=[r["ms"] for r in runs["sharded"]],
+            unsharded_ms=[r["ms"] for r in runs["unsharded"]],
+            agreement=_image_agreement(sh_run["acc"], un["acc"]),
+            totals=dict(sharded=sh_run["totals"], unsharded=un["totals"]),
+            launches_per_sharded_pass=[r["launches"]
+                                       for r in runs["sharded"]],
+            collective_bytes=collective_bytes_per_pass(cfg, mesh,
+                                                       sh_run["live"]))
+        res["profile"] = _profile(run, dev, "[scene shard profile] ")
+        del srep, sh, bvh
+        res["empty_shard"] = _empty_shard_check(scene, view, cfg, dev)
+
+        ds, gview, gcfg, params, target = _shard_grad_inputs(dev, 1)
+        loss1, g1 = train_step_scene_sharded(ds, gview, target, gcfg, mesh,
+                                             _shard_insert, params)
+        dist.destroy_process_group()
+
+        inputs = os.path.join(work, "inputs.pt")
+        torch.save(dict(scene=dataclasses.replace(_to(scene, "cpu"), bvh=None),
+                        view=_to(view, "cpu"), config=cfg), inputs)
+        t0 = time.perf_counter()
+        ranks = _spawn_shard_ranks(work, inputs, dev)
+        res["ranks_seconds"] = time.perf_counter() - t0
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(work, ignore_errors=True)
+
+    g1 = {k: g.cpu().numpy() for k, g in g1.items()}
+    grad_ok, parts = [], {}
+    for r in ranks:
+        gid = r["gid"].numpy()
+        real = gid >= 0
+        for name, g, want in (
+                ("color", r["grads"]["color"].numpy(), g1["color"]),
+                ("offset", r["grads"]["offset"].numpy()[real],
+                 g1["offset"][gid[real]])):
+            atol = 1e-6 * float(np.abs(want).max())
+            grad_ok.append(float(np.isclose(g, want, rtol=1e-4,
+                                            atol=atol).mean()))
+        parts[r["coords"][1]] = float(np.abs(r["grads"]["offset"]).sum())
+    res["ranks"] = dict(
+        mesh=list(SHARD_MESH),
+        ms=ranks[0]["ms"],
+        agreement=_image_agreement(ranks[0]["accumulator"].numpy(),
+                                   un["acc"]),
+        totals=ranks[0]["totals"],
+        max_memory_allocated=[r["max_memory_allocated"] for r in ranks],
+        shard_bytes=[r["shard_bytes"] for r in ranks],
+        shard_triangles=[r["shard_triangles"] for r in ranks],
+        shard_seconds=[r["shard_seconds"] for r in ranks],
+        launches_per_pass=[r["launches_per_pass"][-1] for r in ranks],
+        collective_bytes=ranks[0]["collective_bytes"],
+        loss=[r["loss"] for r in ranks], loss_single=loss1.item(),
+        grad_close=min(grad_ok), offset_grad_abs_sum_by_shard=parts)
+    print("[scene shard] " + json.dumps(res), flush=True)
+
+    want = {k: path_len for k in ("trace_closest", "trace_occluded")}
+    rk = res["ranks"]
+    checks = dict(
+        pixels=all(a["frac_bad"] < FRAC_BAD_MAX and a["mean_rel"] < MEAN_REL_MAX
+                   for a in (res["agreement"], rk["agreement"])),
+        totals=all(abs(a - b) <= TIE_SHARE * b for got in (
+            res["totals"]["sharded"], rk["totals"])
+            for a, b in zip(got, res["totals"]["unsharded"])),
+        launches=all(l == want for l in res["launches_per_sharded_pass"]
+                     + rk["launches_per_pass"]),
+        empty_shard=(res["empty_shard"]["misses"] == res["empty_shard"]["rays"]
+                     and res["empty_shard"]["occluded"] == 0
+                     and res["empty_shard"]["plain_equal"]),
+        loss=all(abs(x - rk["loss_single"]) <= 1e-5 * abs(rk["loss_single"])
+                 for x in rk["loss"]),
+        grads=rk["grad_close"] == 1.0 and all(
+            v > 0 for v in parts.values()) and len(parts) == SHARD_MESH[1])
+    if not all(checks.values()):
+        raise AssertionError(f"[scene shard] failed: {checks}")
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1848,6 +2232,26 @@ def main() -> int:
           f"rank, bathroom {size}x{size}, classic, path {path_len}); "
           f"{par['collective_bytes']['total_bytes']} bytes all-reduced a "
           "pass", flush=True)
+    shard = scene_shard_path(host, cam, dev, size, path_len)
+    rk = shard["ranks"]
+    print(f"[scene shard] (a) one NCCL rank, 1x1: sharded "
+          f"{min(shard['sharded_ms']):.1f} ms, unsharded "
+          f"{min(shard['unsharded_ms']):.1f} ms a pass on {card} (bathroom "
+          f"{size}x{size}, classic, path {path_len}); peak "
+          f"{shard['max_memory_allocated'] / 1e9:.3f} GB; shard "
+          f"{shard['bytes']['shard']} B against the replicated triangles and "
+          f"tree {shard['bytes']['replicated_tris_and_bvh']} B; collectives "
+          f"{shard['collective_bytes']['scene']['total_bytes']} B over scene "
+          f"+ {shard['collective_bytes']['rays']['total_bytes']} B over rays "
+          f"a pass. (b) {rk['mesh'][0]}x{rk['mesh'][1]} gloo ranks on one "
+          f"card: {min(rk['ms']):.1f} ms a pass (gloo stages every "
+          f"collective through the host: not NCCL's cost), peak "
+          f"{max(rk['max_memory_allocated']) / 1e9:.3f} GB and shard "
+          f"{max(rk['shard_bytes'])} B a rank, collectives "
+          f"{rk['collective_bytes']['scene']['total_bytes']} B over scene + "
+          f"{rk['collective_bytes']['rays']['total_bytes']} B over rays a "
+          f"pass a rank; pixels off {rk['agreement']['frac_bad']:.2e}",
+          flush=True)
 
     rows = []
     for name, batch, line, sym, key in (
@@ -1875,6 +2279,10 @@ def main() -> int:
             launches_bdpt_per_pass=bdpt["launches_per_pass"][-1][name],
             launches_sharded_per_pass=par["launches_per_sharded_pass"][-1][
                 name],
+            launches_scene_sharded_per_pass=shard[
+                "launches_per_sharded_pass"][-1][name],
+            launches_scene_sharded_per_rank_pass=[
+                r[name] for r in shard["ranks"]["launches_per_pass"]],
             bdpt_batch_ms={bt: b[key] for bt, b in bdpt["batches"].items()},
             main_path_ms_per_launch=dict(
                 lambert=lambert_prof["kernel_ms_per_launch"][sym],
@@ -1895,4 +2303,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--scene-shard-rank"]:
+        scene_shard_rank(int(sys.argv[2]), *sys.argv[3:7])
+        sys.exit(0)
     sys.exit(main())

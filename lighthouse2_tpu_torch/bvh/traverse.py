@@ -63,11 +63,19 @@ def pack_flat(flat: dict, v0, v1, v2, max_leaf: int = 4) -> dict:
     """The host half of device_bvh_from_flat: the BVH2 arrays in the
     traversal layout, the BVH4 collapsed and packed from them, and both
     depths, as numpy arrays and ints."""
-    nbox = np.concatenate([flat["nmin"].T, flat["nmax"].T], 0).astype(np.float32)
     v0 = np.asarray(v0, np.float32)
     e1 = np.asarray(v1, np.float32) - v0
     e2 = np.asarray(v2, np.float32) - v0
-    tri9 = np.concatenate([v0.T, e1.T, e2.T], 0).astype(np.float32)
+    return pack_flat_tri9(flat, np.concatenate([v0.T, e1.T, e2.T], 0),
+                          max_leaf)
+
+
+def pack_flat_tri9(flat: dict, tri9, max_leaf: int = 4) -> dict:
+    """pack_flat over triangles given as tri9 [9, T] (v0, e1, e2
+    component-major), so their edges are used as they are rather than
+    derived again from the corners."""
+    nbox = np.concatenate([flat["nmin"].T, flat["nmax"].T], 0).astype(np.float32)
+    tri9 = np.asarray(tri9, np.float32)
     wide = pack_wide(nbox, flat["left"], flat["right"], flat["count"],
                      flat["prim"], tri9, max_leaf)
     return dict(nbox=nbox, left=flat["left"], right=flat["right"],

@@ -2,7 +2,9 @@
 
 Counterpart of lighthouse2_tpu/parallel/mesh.py (make_mesh,
 replicate_scene, render_pass_sharded, render_image_sharded,
-train_step_sharded). The global path index range [0, W*H*spp) is split
+train_step_sharded), and of make_mesh2d in
+lighthouse2_tpu/parallel/scene_shard.py (the ("rays", "scene") mesh of
+scene-sharded rendering). The global path index range [0, W*H*spp) is split
 into contiguous blocks, one per rank, as P("rays") splits it over a JAX
 mesh; every rank traces its block through the classic executor against a
 replicated scene, and the per-rank accumulators and stats are summed with
@@ -24,7 +26,11 @@ Differences from the JAX package:
     differentiable all_reduce would all-reduce the gradient again and
     scale it by the world size;
   - train_step_sharded takes no param_extract (JAX's signature has one;
-    the port's step reads the parameters it is given).
+    the port's step reads the parameters it is given);
+  - make_mesh2d's Mesh2D holds one torch.distributed subgroup per axis
+    for this rank: its row of the mesh (the "scene" axis) and its column
+    (the "rays" axis). Without a process group it is a 1x1 mesh whose
+    collectives are the identity.
 """
 from __future__ import annotations
 
@@ -111,9 +117,116 @@ def _sum_over_ranks(x, mesh: Mesh):
     return _SumOverRanks.apply(x, mesh.group)
 
 
+@dataclasses.dataclass
+class Mesh2D:
+    """The ("rays", "scene") mesh over the first rays * scene ranks. Rank
+    r * scene + s sits at coords (r, s), as JAX's devs.reshape(n_ray,
+    n_scene) places devices. groups["scene"] is this rank's row (the ranks
+    that share its rays and split the triangles), groups["rays"] its column
+    (the ranks that share its triangles and split the rays); None without a
+    process group. rank and coords are -1 outside the mesh."""
+    shape: dict
+    rank: int
+    coords: tuple
+    groups: dict
+    device: torch.device
+
+
+def make_mesh2d(n_ray_shards: int, n_scene_shards: int,
+                device=None) -> Mesh2D:
+    """A ("rays", "scene") mesh (scene_shard.py:59-62). With a process group
+    every rank must call it: it creates every row's and every column's
+    group, in the same order on every rank. The device defaults as in
+    make_mesh."""
+    shape = {"rays": n_ray_shards, "scene": n_scene_shards}
+    if not dist.is_initialized():
+        if (n_ray_shards, n_scene_shards) != (1, 1):
+            raise ValueError(f"a {n_ray_shards}x{n_scene_shards} mesh needs "
+                             "a process group (distributed.init_distributed)")
+        return Mesh2D(shape, 0, (0, 0), {"rays": None, "scene": None},
+                      resolve_device(device))
+    world = dist.get_world_size()
+    n = n_ray_shards * n_scene_shards
+    if not 1 <= n <= world:
+        raise ValueError(f"a {n_ray_shards}x{n_scene_shards} mesh in a world "
+                         f"of {world}")
+    rank = dist.get_rank()
+    coords = divmod(rank, n_scene_shards) if rank < n else (-1, -1)
+    groups = {"rays": None, "scene": None}
+    for r in range(n_ray_shards):
+        g = dist.new_group([r * n_scene_shards + s
+                            for s in range(n_scene_shards)])
+        if r == coords[0]:
+            groups["scene"] = g
+    for s in range(n_scene_shards):
+        g = dist.new_group([r * n_scene_shards + s
+                            for r in range(n_ray_shards)])
+        if s == coords[1]:
+            groups["rays"] = g
+    if device is None:
+        device = ("cpu" if dist.get_backend() == "gloo"
+                  else torch.device("cuda", torch.cuda.current_device()))
+    return Mesh2D(shape, rank if rank < n else -1, coords, groups,
+                  resolve_device(device))
+
+
+def sum_over(x, mesh: Mesh2D, axis: str):
+    """psum over a mesh axis whose backward passes the gradient through
+    (_SumOverRanks): for values that every rank of the axis goes on to use
+    alike."""
+    group = mesh.groups[axis]
+    return x if group is None else _SumOverRanks.apply(x, group)
+
+
+class _BroadcastOverRanks(torch.autograd.Function):
+    """Identity whose backward all-reduces (SUM) the gradient: JAX's
+    pbroadcast of a replicated value into a computation that varies over
+    the ranks, whose transpose is a psum."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+def broadcast_over(x, mesh: Mesh2D, axis: str):
+    """Mark a replicated tensor as entering a computation that differs
+    along `axis`: the identity, whose backward sums the gradient over the
+    axis."""
+    group = mesh.groups[axis]
+    if group is None or not x.requires_grad:
+        return x
+    return _BroadcastOverRanks.apply(x, group)
+
+
+def reduce_over(x, mesh: Mesh2D, axis: str, op):
+    """all_reduce(op) over a mesh axis, out of place, no gradient."""
+    group = mesh.groups[axis]
+    if group is None:
+        return x
+    y = x.contiguous().clone()
+    dist.all_reduce(y, op=op, group=group)
+    return y
+
+
 # the stats summed over the ranks, flattened in this order into one tensor
 _STAT_KEYS = ("extension_rays", "shadow_rays", "total_extension",
               "total_shadow", "primary_rays")
+
+
+def unflatten_stats(flat, length: int) -> dict:
+    """The stats dict from its _STAT_KEYS flattening, `length` bounces."""
+    return dict(extension_rays=flat[:length],
+                shadow_rays=flat[length:2 * length],
+                total_extension=flat[2 * length],
+                total_shadow=flat[2 * length + 1],
+                primary_rays=flat[2 * length + 2])
 
 
 def local_pass(scene, view, state: AccumState, config: RenderConfig,
@@ -151,16 +264,10 @@ def render_pass_sharded(scene, view, state: AccumState, config: RenderConfig,
     acc, flat, cam_seed = local_pass(scene, view, state, config, mesh)
     acc = _sum_over_ranks(acc, mesh)
     flat = _sum_over_ranks(flat, mesh)
-    length = config.max_path_length
-    stats = dict(extension_rays=flat[:length],
-                 shadow_rays=flat[length:2 * length],
-                 total_extension=flat[2 * length],
-                 total_shadow=flat[2 * length + 1],
-                 primary_rays=flat[2 * length + 2])
     return AccumState(
         accumulator=state.accumulator + acc,
         sample_count=state.sample_count + config.spp_per_pass,
-        cam_seed=cam_seed), stats
+        cam_seed=cam_seed), unflatten_stats(flat, config.max_path_length)
 
 
 def render_image_sharded(scene, view, config: RenderConfig, mesh: Mesh):

@@ -1,11 +1,29 @@
 """Shading-data assembly — the GetShadingData analog (material_shared.h:35-178).
 
 Counterpart of lighthouse2_tpu/render/shading.py (ShadingData,
-material_pack, get_shading_data, _assemble_shading): interpolated normals
-and uvs with the OptiX7 barycentric convention, textures with ray-cone LOD,
-consistent normals, normal maps and the back-face flip. The port has only
-the gather path; shading_from_payload fed the TPU kernel's payload rows and
-has no counterpart here.
+MAT_PACK_ROWS, material_pack, get_shading_data, shading_from_payload,
+_assemble_shading) and of the PAY_* row layout of
+lighthouse2_tpu/bvh/clusters.py: interpolated normals and uvs with the
+OptiX7 barycentric convention, textures with ray-cone LOD, consistent
+normals, normal maps and the back-face flip.
+
+get_shading_data gathers from the scene's triangle and material tables.
+shading_from_payload reads the same data from per-ray payload rows, which
+scene-sharded rendering (parallel/scene_shard.py) assembles across shards;
+no device holds the global triangle tables there.
+
+Differences from the JAX package:
+  - the payload is narrower (PAY_ROWS = 63 rows, not 72): no sublane pads
+    (JAX rows 38:40 and 68:72), and no PAY_PRIM, PAY_MAT or PAY_VALID rows.
+    The hit's global triangle id rides beside the payload as an int32
+    tensor (exact at any triangle count, where a float32 row is exact only
+    below 2^24), and the material id and the valid flag have no reader once
+    the material rows are in the payload;
+  - shading_from_payload takes that id as its `prim` argument, and only
+    the geom_reattach=False branch: geom_reattach=True re-attaches the
+    gradient of the TPU kernel's payload to the global tables
+    (render/fetch.py, not ported) and raises ValueError. Its default is
+    False, JAX's is True.
 """
 from __future__ import annotations
 
@@ -14,7 +32,7 @@ import dataclasses
 import torch
 
 from lighthouse2_tpu_torch.core.geometry import (
-    consistent_normal, dot, normalize, oriented_frame)
+    consistent_normal, cross, dot, normalize, oriented_frame)
 from lighthouse2_tpu_torch.render.textures import fetch_trilinear
 from lighthouse2_tpu_torch.scene.device_scene import DeviceScene
 from lighthouse2_tpu_torch.scene.host_material import MAT_HASALPHA
@@ -50,6 +68,27 @@ class ShadingData:
     alpha_cutout: torch.Tensor   # [N] bool
     tangent: torch.Tensor        # [N,3]
     bitangent: torch.Tensor      # [N,3]
+
+
+MAT_PACK_ROWS = 28
+
+# payload rows [PAY_ROWS, N] f32: the hit triangle's data, then its material
+PAY_V0 = 0          # 0:9  v0, e1, e2
+PAY_E1 = 3
+PAY_E2 = 6
+PAY_N0 = 9          # 9:18 vertex normals
+PAY_N1 = 12
+PAY_N2 = 15
+PAY_UV0 = 18        # 18:24 uv0, uv1, uv2
+PAY_UV1 = 20
+PAY_UV2 = 22
+PAY_ALPHA = 24      # 24:27 consistent-normal alphas
+PAY_LTRI = 27       # area-light slot as f32 (-1 = none)
+PAY_LOD = 28        # texture LOD base
+PAY_TAN = 29        # 29:32 uv tangent
+PAY_BIT = 32        # 32:35 uv bitangent
+PAY_GEO_ROWS = 35
+PAY_ROWS = PAY_GEO_ROWS + MAT_PACK_ROWS    # 63: material_pack rows last
 
 
 def material_pack(mats) -> torch.Tensor:
@@ -113,6 +152,50 @@ def get_shading_data(scene: DeviceScene, d, t, prim, u, v, spread_angle,
                              alpha3=(g[18], g[19], g[20]), area=g[21],
                              ltri=tris.ltri[p], lod_base=g[22],
                              tangent=_v3(g, 23), bitangent=_v3(g, 26))
+
+
+def shading_from_payload(scene: DeviceScene, d, t, prim, payload, u, v,
+                         spread_angle, consistent_normals=True,
+                         geom_reattach=False) -> ShadingData:
+    """GetShadingData from per-ray payload rows [PAY_ROWS, N] of the hit
+    triangles (prim >= 0 hits, the global triangle id). The rows are used
+    as they are, so their gradient flows back through whatever assembled
+    them. n_geom and the area come from e1 x e2 (JAX shading.py:96-97), not
+    from the host's face normal."""
+    if geom_reattach:
+        raise ValueError("shading_from_payload(geom_reattach=True) needs the "
+                         "cluster payload re-attach (render/fetch.py), which "
+                         "is not ported; payloads come from scene sharding")
+    ltri = torch.where(prim >= 0, payload[PAY_LTRI].detach().to(torch.int32),
+                       -1)
+    w = 1.0 - u - v
+    g9 = payload[PAY_V0:PAY_V0 + 9]
+    ga = payload[PAY_N0:PAY_N0 + 18]
+    e1 = _v3(g9, 3)
+    e2 = _v3(g9, 6)
+    cr = cross(e1, e2)
+    # lanes without a hit carry zero rows: give them a unit area facing the
+    # ray, so that the light pdf there (t^2 / (cos * area)) stays finite and
+    # its zero cotangent does not turn into NaN (get_shading_data's miss
+    # lanes read triangle 0 for the same reason)
+    hit = (prim >= 0)[:, None]
+    area = torch.where(hit[:, 0], 0.5 * torch.sqrt(
+        torch.clamp(dot(cr, cr), min=1e-30)), 1.0)
+    n_geom = torch.where(hit, normalize(cr), -d.detach())
+    n_int = normalize(w[:, None] * _v3(ga, 0) + u[:, None] * _v3(ga, 3)
+                      + v[:, None] * _v3(ga, 6))
+    uv = (w[:, None] * torch.stack([ga[9], ga[10]], -1)
+          + u[:, None] * torch.stack([ga[11], ga[12]], -1)
+          + v[:, None] * torch.stack([ga[13], ga[14]], -1))
+    m = payload[PAY_GEO_ROWS:PAY_GEO_ROWS + MAT_PACK_ROWS]
+    mi = m[18:28].detach().to(torch.int32)
+    return _assemble_shading(scene, d, t, prim, u, v, w, spread_angle,
+                             consistent_normals, n_geom, n_int, uv, m, mi,
+                             color=_v3(m, 0), rough=m[9],
+                             alpha3=(ga[15], ga[16], ga[17]), area=area,
+                             ltri=ltri, lod_base=payload[PAY_LOD],
+                             tangent=_v3(payload, PAY_TAN),
+                             bitangent=_v3(payload, PAY_BIT))
 
 
 def _assemble_shading(scene, d, t, prim, u, v, w, spread_angle,

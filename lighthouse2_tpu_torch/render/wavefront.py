@@ -4,7 +4,9 @@ the path-regeneration executor, both differentiable.
 Counterpart of lighthouse2_tpu/render/wavefront.py: AccumState, finalize,
 _clamp_intensity, _fixnan, _masked_div, _tiled_pixel, untile_image,
 generate_eye_rays, _pick_intersector, _intersect / _occluded (their BVH and
-brute-force branches), bounce_step, shade_bounce, apply_shadow, trace_paths
+brute-force branches), bounce_step (with the intersect_fn / occluded_fn
+hooks of scene sharding), make_shading, shade_bounce, apply_shadow,
+trace_paths
 (the classic executor with the filter's G-buffer stream and _finish_pass's
 filter_aux; also the single-pass semantics of trace_paths_unrolled),
 make_regen_pool, trace_paths_regen, ensure_regen_state and
@@ -44,9 +46,15 @@ Differences from the JAX package:
     BVH) takes core/geometry.py's brute force, on detached rays as the
     kernels take them; "cluster" raises, the cluster tiles are not ported;
   - filter_enabled with path_regen raises ValueError where JAX asserts;
-  - scene_sharded is not ported yet; render_pass rejects configs that ask
-    for it. trace_paths takes the path_idx shards of the parallel layer
-    (parallel/mesh.py) as JAX's does.
+  - render_pass rejects scene_sharded=True: the scene-sharded pass is
+    parallel/scene_shard.py's render_pass_scene_sharded, which runs
+    trace_paths with its own intersect_fn / occluded_fn. trace_paths takes
+    the path_idx shards of the parallel layer (parallel/mesh.py) as JAX's
+    does;
+  - intersect_fn returns the traversal's winner (t, prim, u, v) and the
+    payload rows, and the refine from those rows runs in the shade stage
+    (so remat recomputes it and no collective of the hook is recomputed);
+    JAX's hook returns the refined hit.
 """
 from __future__ import annotations
 
@@ -56,7 +64,7 @@ import math
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from lighthouse2_tpu_torch.bvh.traverse import refine_hit
+from lighthouse2_tpu_torch.bvh.traverse import refine_hit, refine_hit_rows
 from lighthouse2_tpu_torch.core import bluenoise as bn
 from lighthouse2_tpu_torch.core import rng as rng_mod
 from lighthouse2_tpu_torch.core.geometry import (
@@ -69,7 +77,8 @@ from lighthouse2_tpu_torch.render.kernels.trace import trace_closest, trace_occl
 from lighthouse2_tpu_torch.render.lights import (
     calculate_light_pdf, light_pick_prob, random_point_on_light,
     sky_pick_prob)
-from lighthouse2_tpu_torch.render.shading import get_shading_data
+from lighthouse2_tpu_torch.render.shading import (
+    PAY_V0, get_shading_data, shading_from_payload)
 from lighthouse2_tpu_torch.render.sky import sample_skydome, sky_pdf
 from lighthouse2_tpu_torch.scene.device_scene import DeviceScene
 
@@ -260,10 +269,15 @@ def _occluded(scene: DeviceScene, o, d, tmax, config: RenderConfig):
     return trace_occluded(o, d, tmax, scene.bvh)
 
 
-def _refine(scene: DeviceScene, o, d, t, prim, u, v):
-    """(t, u, v) recomputed differentiably from the winning triangle; lanes
-    whose re-test loses the hit keep the traversal values."""
-    rt, ru, rv, ok = refine_hit(o, d, prim, scene.tris.tri9)
+def _refine(scene: DeviceScene, o, d, t, prim, u, v, payload=None):
+    """(t, u, v) recomputed differentiably from the winning triangle, read
+    from the payload rows when there are some; lanes whose re-test loses
+    the hit keep the traversal values."""
+    if payload is None:
+        rt, ru, rv, ok = refine_hit(o, d, prim, scene.tris.tri9)
+    else:
+        rt, ru, rv, ok = refine_hit_rows(o, d, prim,
+                                         payload[PAY_V0:PAY_V0 + 9])
     keep = (prim >= 0) & ok
     return (torch.where(keep, rt, t), prim, torch.where(keep, ru, u),
             torch.where(keep, rv, v))
@@ -274,25 +288,42 @@ def _intersect(scene: DeviceScene, o, d, alive, config: RenderConfig):
     return _refine(scene, o, d, *_trace(scene, o, d, alive, config))
 
 
-def _shade_stage(scene, view, config, paths, acc, cam_seed, li, hit):
+def _shade_stage(scene, view, config, paths, acc, cam_seed, li, hit, payload):
     """refine + shade: the part of a bounce that remat recomputes."""
-    t, prim, u, v = _refine(scene, paths["origin"], paths["dir"], *hit)
+    t, prim, u, v = _refine(scene, paths["origin"], paths["dir"], *hit,
+                            payload=payload)
     return shade_bounce(scene, view, config, paths, acc, cam_seed, li,
-                        t, prim, u, v)
+                        t, prim, u, v, payload=payload)
 
 
-def bounce_step(scene, view, config: RenderConfig, paths, acc, cam_seed, li):
+def bounce_step(scene, view, config: RenderConfig, paths, acc, cam_seed, li,
+                intersect_fn=None, occluded_fn=None):
     """One full bounce: trace, refine + shade (checkpointed with
     config.remat), occlude, apply. Returns (paths, acc, cam_seed,
-    n_shadow_connections)."""
-    hit = _trace(scene, paths["origin"], paths["dir"], paths["alive"], config)
-    args = (scene, view, config, paths, acc, cam_seed, li, hit)
+    n_shadow_connections).
+
+    intersect_fn(o, d, alive) -> (t, prim, u, v, payload) replaces the
+    trace: the traversal's winner and its payload rows [PAY_ROWS, N] (or
+    None); occluded_fn(o, d, tmax) -> bool [N] replaces the shadow trace.
+    The payload goes through the checkpoint with the hit."""
+    if intersect_fn is None:
+        hit, payload = _trace(scene, paths["origin"], paths["dir"],
+                              paths["alive"], config), None
+    else:
+        *hit, payload = intersect_fn(paths["origin"], paths["dir"],
+                                     paths["alive"])
+    args = (scene, view, config, paths, acc, cam_seed, li, tuple(hit),
+            payload)
     if config.remat:
         paths, acc, cam_seed, shadow = checkpoint(_shade_stage, *args,
                                                   use_reentrant=False)
     else:
         paths, acc, cam_seed, shadow = _shade_stage(*args)
-    occ = _occluded(scene, shadow["o"], shadow["d"], shadow["tmax"], config)
+    if occluded_fn is None:
+        occ = _occluded(scene, shadow["o"], shadow["d"], shadow["tmax"],
+                        config)
+    else:
+        occ = occluded_fn(shadow["o"], shadow["d"], shadow["tmax"])
     acc, paths = apply_shadow(config, paths, acc, shadow, occ)
     return paths, acc, cam_seed, shadow["conn_ok"].sum()
 
@@ -314,12 +345,26 @@ def _add_contrib(config, acc, paths, contrib, mask, to_direct):
     return acc, dict(paths, acc_ind=ind)
 
 
+def make_shading(scene: DeviceScene, d, t, prim, u, v, spread_angle,
+                 config: RenderConfig, payload=None):
+    """GetShadingData from the payload rows when there are some (scene
+    sharding: config.scene_sharded), else by the gathers."""
+    if payload is not None:
+        return shading_from_payload(
+            scene, d, t, prim, payload, u, v, spread_angle,
+            consistent_normals=config.consistent_normals,
+            geom_reattach=not config.scene_sharded)
+    return get_shading_data(scene, d, t, prim, u, v, spread_angle,
+                            consistent_normals=config.consistent_normals)
+
+
 def shade_bounce(scene, view, config: RenderConfig, paths, acc, cam_seed, li,
-                 t, prim, u, v):
+                 t, prim, u, v, payload=None):
     """The shade stage for one bounce (pathtracer.h:54-240 without the trace
     launches). `li` is the path depth (0 = primary): an int in the classic
-    executor, a per-lane tensor in the regen one. Returns (paths', acc',
-    cam_seed', shadow)."""
+    executor, a per-lane tensor in the regen one. `payload` holds the hit
+    triangles' rows (scene sharding). Returns (paths', acc', cam_seed',
+    shadow)."""
     bsdf_mod = bsdf_disney if config.bsdf == "disney" else bsdf_lambert
     geo_eps = config.geometry_epsilon
     path_length = li + 1                       # reference is 1-based
@@ -359,8 +404,8 @@ def shade_bounce(scene, view, config: RenderConfig, paths, acc, cam_seed, li,
 
     hit = alive & (prim >= 0)
     i_pos = o + t[:, None] * d
-    sd = get_shading_data(scene, d, t, prim, u, v, view.spread_angle,
-                          consistent_normals=config.consistent_normals)
+    sd = make_shading(scene, d, t, prim, u, v, view.spread_angle, config,
+                      payload)
 
     # alpha cutout -> passthrough extension ray (pathtracer.h:107-118)
     cutout = hit & sd.alpha_cutout
@@ -519,7 +564,8 @@ def _pass_stats(ext, conn, **extra):
 
 
 def trace_paths(scene, view, config: RenderConfig, sample_base: int,
-                cam_seed: int, path_idx=None):
+                cam_seed: int, path_idx=None, intersect_fn=None,
+                occluded_fn=None):
     """The classic executor: one wavefront of W*H*spp fresh paths traced for
     max_path_length bounces. Returns (acc_delta [W*H,4], cam_seed', stats);
     stats hold device tensors.
@@ -532,7 +578,7 @@ def trace_paths(scene, view, config: RenderConfig, sample_base: int,
     loop when no extension ray is left (rendercore.cpp:723-726), but still
     advances cam_seed, so the sampling schedule does not depend on where
     the paths died. Testing for that reads one bool back from the device
-    each bounce.
+    each bounce. intersect_fn / occluded_fn go to every bounce_step.
 
     With config.filter_enabled the accumulator holds the direct stream
     only, and stats["filter_aux"] holds the filter's per-pixel inputs: the
@@ -560,7 +606,8 @@ def trace_paths(scene, view, config: RenderConfig, sample_base: int,
             conn.append(torch.zeros_like(n_alive))
             continue
         paths, acc, cam_seed, n_conn = bounce_step(
-            scene, view, config, paths, acc, cam_seed, li)
+            scene, view, config, paths, acc, cam_seed, li,
+            intersect_fn=intersect_fn, occluded_fn=occluded_fn)
         conn.append(n_conn)
     stats = _pass_stats(ext, conn, primary_rays=torch.tensor(
         n, dtype=torch.int32))
