@@ -7,17 +7,19 @@ toolkit (nvcc on PATH or under /usr/local/cuda):
     python3 chip_smoke.py
 
 Phases; any failure exits non-zero before the result line is printed:
-  1. the card, torch / CUDA / nvcc versions; build csrc/trace.cu with nvcc
-     for sm_90a and print its -Xptxas -v report;
+  1. the card, torch / CUDA / nvcc versions; build csrc/trace.cu and
+     csrc/cluster_trace.cu with nvcc for sm_90a, one nvcc each, started
+     together, and print their -Xptxas -v reports;
   2. [scene] the full bathroom (129,252 triangles, 21 instances of 20
      meshes) synced three ways: single-level over all world triangles with
      the numpy builder (the port's tree before the two-level default)
      and with the native one,
-     then the default HostScene.sync, the two-level tree (a TLAS over
-     native per-mesh BLASes); for each, BVH2 and BVH4 nodes, depths and MB,
-     and the host seconds by step (pose, BLAS builds, compose, tables,
-     textures, BVH4 pack, upload). Every later phase runs on the default
-     tree. [kernels] both trace kernels on the default tree for the 512x512
+     then the two-level tree (a TLAS over native per-mesh BLASes) with
+     the cluster tiles of phase 19 (sync(clusters=True)) and last without
+     them, the default HostScene.sync; for each, BVH2 and BVH4 nodes,
+     depths and MB, and the host seconds by step (pose, BLAS builds,
+     compose, tables, textures, BVH4 pack, cluster cut, upload). Every
+     later phase runs on the default tree. [kernels] both trace kernels on the default tree for the 512x512
      primary rays, the bounce-1 rays of one shade_bounce and that bounce's
      NEE shadow batch, against two references: their plain version, the
      BVH4 walk of bvh/wide.py (t, prim, u, v, occlusion and the per-ray
@@ -170,8 +172,39 @@ Phases; any failure exits non-zero before the result line is printed:
      gradients (the per-shard vertex gradients mapped back through gid)
      within rtol 1e-4 / atol 1e-6 of the largest of (a)'s 1x1 step, both
      shards' vertex gradients nonzero.
-It then prints one JSON line of per-kernel numbers, the card's name and
-power limit, and last the result line {"ok": true, "device": {...}}.
+ 19. [cluster] intersector="cluster": the ClusterBVH (cut from the default
+     tree by a sync asked for it, here and nowhere earlier) traced by csrc/cluster_trace.cu's two kernels.
+     (a) both kernels on [kernels]' three batches, each in the executor's
+     order (primaries as they come, bounce-1 rays sorted by ray_sort_perm
+     "dir", shadow rays by "origin_octant"), against their plain versions
+     on every lane of every block (code, t, per-block visit and sub-packet
+     counters, occlusion equal; the plain walk takes 2-13 s a batch on the
+     card, under the 60 s at which a subset of blocks would be compared)
+     and against the BVH4 kernels (prim and occlusion on >= AGREE_MIN of
+     the lanes); CUDA-event ms over KERNEL_ITERS launches, the plain
+     version's wall ms, and the bound of the same work as the BVH4 rows
+     (the BVH2 walk's counted operations, the BVH2 arrays and rays read
+     once, the kernel's outputs written once). (b) the bathroom 512x512,
+     path 16, regen through render_pass: 1 warm-up and CLUSTER_PASSES
+     timed passes, each launching each cluster kernel 16 times and the BVH4
+     kernels never; Mrays/s, ms a pass, peak memory; the image against
+     the "auto" passes of the same run (FRAC_BAD_MAX, MEAN_REL_MAX: the
+     two structures differ only in exact t-ties); one profiled pass.
+     (c) one warm-up and one timed fwd+bwd step of regen_value_and_grad
+     (grads "all", remat) on the cluster path: ms, peak memory, 16 + 16
+     launches; loss within LOSS_RTOL and each gradient group within
+     GRAD_RTOL (relative L2, tests/test_torch_grad.py's bounds) of the
+     "auto" step from the same state; the device-time share of the
+     re-attach backward (index_add_) beside the gather backward's share of
+     [train profile]'s "auto" step. (d) the 64x64 Cornell box of phase 4
+     on the card and on the CPU under "cluster", every pixel compared.
+     (e) one BDPT pass of the bathroom (classic, spp 1, path 16) and one
+     scene-sharded pass on a 1x1 NCCL mesh (path CLUSTER_SHARD_PATH)
+     under "cluster", each against its "auto" counterpart (FRAC_BAD_MAX,
+     MEAN_REL_MAX), launching only the cluster kernels.
+It then prints one JSON line of per-kernel numbers (the two BVH4 kernels
+and the two cluster kernels), the card's name and power limit, and last
+the result line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -183,6 +216,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 KERNEL_ITERS = 20          # timed launches per kernel and batch
 PLAIN_ITERS = 3            # timed calls per plain version and batch
@@ -226,6 +260,13 @@ SHARD_GRAD_SIZE = 64       # Cornell box side of the [scene shard] gradient
 FRAC_BAD_MAX = 5e-3        # __graft_entry__.py:118, pixels off
 MEAN_REL_MAX = 1e-4        # __graft_entry__.py:118, mean relative error
 TIE_SHARE = 1e-3           # stats totals: a t-tie may change a winner
+CLUSTER_PASSES = 3         # timed passes of [cluster] (b)
+CLUSTER_SHARD_PATH = 4     # path length of [cluster] (e)'s scene-sharded pass
+LOSS_RTOL = 1e-4           # tests/test_torch_grad.py: the loss, relative
+# device-time shares of a fwd+bwd step: the cluster path's re-attach
+# backward (index_add_) and the gather backward
+TRAIN_SHARES = dict(reattach_index_add="indexFunc",
+                    gather_backward="indexing_backward")
 
 
 def _sh(cmd):
@@ -271,8 +312,8 @@ def trace_batches(scene, view, cfg, dev):
 
     paths, depth, _ = wf.make_regen_pool(view, cfg)
     n = depth.shape[0]
-    t, prim, u, v = wf._intersect(scene, paths["origin"], paths["dir"],
-                                  paths["alive"], cfg)
+    t, prim, u, v, _ = wf._intersect(scene, paths["origin"], paths["dir"],
+                                     paths["alive"], cfg)
     acc = torch.zeros((n, 4), dtype=torch.float32, device=dev)
     paths1, _, _, shadow = wf.shade_bounce(scene, view, cfg, paths, acc,
                                            CAM_RNG_SEED, depth, t, prim, u, v)
@@ -370,11 +411,22 @@ def _counts():
                 trace_occluded=trace_occluded.launches)
 
 
+def _cluster_counts():
+    from lighthouse2_tpu_torch.render.kernels.cluster import (
+        cluster_closest, cluster_occluded)
+    return dict(cluster_closest=cluster_closest.launches,
+                cluster_occluded=cluster_occluded.launches)
+
+
 def _zero_counts():
+    """Every kernel's launch count to 0 (the BVH4 and the cluster kernels)."""
+    from lighthouse2_tpu_torch.render.kernels.cluster import (
+        cluster_closest, cluster_occluded)
     from lighthouse2_tpu_torch.render.kernels.trace import (
         trace_closest, trace_occluded)
-    trace_closest.launches = 0
-    trace_occluded.launches = 0
+    for fn in (trace_closest, trace_occluded, cluster_closest,
+               cluster_occluded):
+        fn.launches = 0
 
 
 def main_path(scene, view, cfg, dev, passes):
@@ -430,8 +482,17 @@ def main_path(scene, view, cfg, dev, passes):
     return res, state
 
 
-def _profile(fn, dev, tag):
-    """Run fn once under torch.profiler: device time by kernel name."""
+def _kernel_name(key):
+    """The function name in a profiler key (a demangled signature), so that
+    closest_kernel does not also match cluster_closest_kernel."""
+    head = key.split("(")[0].split()
+    return head[-1] if head else key
+
+
+def _profile(fn, dev, tag, shares=None):
+    """Run fn once under torch.profiler: device time by kernel name.
+    `shares` {label: substring}: the share of the device time of the
+    kernels whose names contain the substring."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -449,11 +510,13 @@ def _profile(fn, dev, tag):
             rows.append((us, e.key, e.count))
     rows.sort(reverse=True)
     total = sum(r[0] for r in rows)
-    kernels = ("closest_kernel", "occluded_kernel")
-    share = {k: sum(r[0] for r in rows if k in r[1]) / max(total, 1e-9)
+    kernels = ("closest_kernel", "occluded_kernel", "cluster_closest_kernel",
+               "cluster_occluded_kernel")
+    name = _kernel_name
+    share = {k: sum(r[0] for r in rows if name(r[1]) == k) / max(total, 1e-9)
              for k in kernels}
-    per_launch = {k: sum(r[0] for r in rows if k in r[1]) / 1e3
-                  / max(sum(r[2] for r in rows if k in r[1]), 1)
+    per_launch = {k: sum(r[0] for r in rows if name(r[1]) == k) / 1e3
+                  / max(sum(r[2] for r in rows if name(r[1]) == k), 1)
                   for k in kernels}
     res = dict(wall_ms=wall * 1e3, device_ms=total / 1e3,
                device_launches=sum(r[2] for r in rows),
@@ -462,6 +525,9 @@ def _profile(fn, dev, tag):
                kernel_ms_per_launch=per_launch,
                top=[dict(name=k[:60], ms=us / 1e3, calls=c)
                     for us, k, c in rows[:12]])
+    if shares:
+        res["shares"] = {label: sum(r[0] for r in rows if sub in r[1])
+                         / max(total, 1e-9) for label, sub in shares.items()}
     print(tag + json.dumps(res), flush=True)
     return res
 
@@ -473,9 +539,11 @@ def profile_pass(scene, view, cfg, state, dev):
                     "[profile] ")
 
 
-def reference_check(dev):
-    """Phase 4: a small render on the card against the same render through
-    the plain versions on the CPU."""
+def reference_check(dev, intersector="auto", tag="[reference] "):
+    """Phase 4 (and [cluster] (d) with intersector="cluster", the scene
+    synced with its cluster tiles): a small render on the card against the
+    same render through the plain versions on the CPU, every pixel
+    compared; the card's render launches the chosen path's kernels."""
     import torch
     from lighthouse2_tpu_torch.core.types import RenderConfig
     from lighthouse2_tpu_torch.render.wavefront import (
@@ -483,22 +551,30 @@ def reference_check(dev):
     from lighthouse2_tpu_torch.scene.presets import cornell_box
 
     cfg = RenderConfig(width=64, height=64, spp_per_pass=1, max_path_length=4,
-                       path_regen=True)
+                       path_regen=True, intersector=intersector)
     scene, cam = cornell_box(64, 64)
+    cluster = intersector == "cluster"
     out = {}
     for where in (dev, torch.device("cpu")):
-        ds, view = scene.sync(where), cam.get_view(where)
+        ds = scene.sync(where, clusters=cluster)
+        view = cam.get_view(where)
         st = AccumState.make(cfg, where)
+        before = _all_counts()
         for _ in range(2):
             st, _ = render_pass(ds, view, st, cfg)
+        launched = _launch_deltas(before, _all_counts())
         out[where.type] = (st.accumulator.cpu(), finalize(st).cpu())
+        if where.type == "cuda" and not all(
+                n > 0 for k, n in launched.items()
+                if k.startswith("cluster") == cluster):
+            raise AssertionError(f"{tag}launches: {launched}")
     (ga, gi), (ca, ci) = out[dev.type], out["cpu"]
     close = torch.isclose(ga, ca, rtol=1e-3, atol=1e-4).all(-1)
     res = dict(pixels_close=close.float().mean().item(),
                mean_card=gi.mean().item(), mean_cpu=ci.mean().item(),
                mean_rel_diff=abs(gi.mean().item() - ci.mean().item())
                / max(abs(ci.mean().item()), 1e-30))
-    print("[reference] " + json.dumps(res), flush=True)
+    print(tag + json.dumps(res), flush=True)
     if res["pixels_close"] < 0.99 or res["mean_rel_diff"] > 1e-3:
         raise AssertionError("card and CPU renders disagree")
     return res
@@ -589,14 +665,15 @@ def train_path(scene, view, cfg, dev, steps):
 
 
 def profile_train_step(scene, view, cfg, state, dev):
-    """One fwd+bwd step under torch.profiler: device time by kernel name."""
+    """One fwd+bwd step under torch.profiler: device time by kernel name,
+    and the shares of TRAIN_SHARES."""
     from lighthouse2_tpu_torch.diff.render import regen_value_and_grad
 
     cfg = dataclasses.replace(cfg, remat=True)
     params, target = _headline_params(scene, cfg.width, dev)
     return _profile(lambda: regen_value_and_grad(scene, view, state, cfg,
                                                  target, params),
-                    dev, "[train profile] ")
+                    dev, "[train profile] ", TRAIN_SHARES)
 
 
 def grad_reference_check(dev, disney=False):
@@ -859,6 +936,7 @@ def scene_trees(host, dev):
     for name, kw in (("single_level_numpy", dict(two_level=False,
                                                  native=False)),
                      ("single_level_native", dict(two_level=False)),
+                     ("two_level_clusters", dict(clusters=True)),
                      ("two_level", {})):
         before = dict(host.build_stats)
         t0 = time.perf_counter()
@@ -873,6 +951,9 @@ def scene_trees(host, dev):
             node4_mb=mb(b.node4), tri4_mb=mb(b.tri4), sync_seconds=wall,
             host_seconds=dict(host.sync_seconds),
             build_stats={k: host.build_stats[k] - before[k] for k in before})
+        if ds.cbvh is not None:
+            res.update(clusters=ds.cbvh.n_clusters,
+                       tiles_per_cluster=ds.cbvh.tiles_per_cluster)
         print(f"[scene] {name}: " + json.dumps(res), flush=True)
         check_depth4(b.depth4)
         out[name] = ds
@@ -2037,7 +2118,8 @@ def scene_shard_path(host, cam, dev, size=512, path_len=16):
         dist.destroy_process_group()
 
         inputs = os.path.join(work, "inputs.pt")
-        torch.save(dict(scene=dataclasses.replace(_to(scene, "cpu"), bvh=None),
+        torch.save(dict(scene=dataclasses.replace(_to(scene, "cpu"), bvh=None,
+                                                  cbvh=None),
                         view=_to(view, "cpu"), config=cfg), inputs)
         t0 = time.perf_counter()
         ranks = _spawn_shard_ranks(work, inputs, dev)
@@ -2098,6 +2180,341 @@ def scene_shard_path(host, cam, dev, size=512, path_len=16):
     return res
 
 
+def _cluster_batches(scene, view, cfg, dev):
+    """[cluster] (a)'s batches: trace_batches' primary, bounce-1 and shadow
+    rays, each as the cluster path's ray tile in the executor's order
+    (primaries as they come, bounce rays sorted by "dir", shadow rays by
+    "origin_octant"). Returns {name: (o, d, tmax, x, inv)}."""
+    from lighthouse2_tpu_torch.render.kernels.cluster import (
+        ray_sort_perm, ray_tile)
+    keys = dict(primary=None, bounce1="dir", shadow="origin_octant")
+    out = {}
+    for name, (o, d, tmax) in trace_batches(scene, view, cfg, dev).items():
+        perm = inv = None
+        if keys[name] is not None and scene.cbvh.n_clusters >= 16:
+            perm, inv = ray_sort_perm(o, d, tmax, scene.cbvh, key=keys[name])
+        out[name] = (o, d, tmax, ray_tile(o, d, tmax, perm), inv)
+    return out
+
+
+def cluster_kernels(scene, view, cfg, dev, kern, iters):
+    """[cluster] (a): both cluster kernels against their plain versions
+    (every lane of the three batches: code, t, the per-block visit and
+    sub-packet counters and the occlusion equal) and against the BVH4
+    kernels (prim and occlusion on >= AGREE_MIN of the lanes); CUDA-event
+    ms over `iters` launches; the plain version's wall ms of the one
+    compared call; the bound of the same work as the BVH4 rows (the BVH2
+    walk's counted operations from `kern`, the BVH2 arrays and the rays
+    read once, this kernel's outputs written once). Returns {kernel:
+    {batch: numbers}}."""
+    import torch
+    from lighthouse2_tpu_torch.render.kernels.cluster import (
+        BLOCK, cluster_closest, cluster_closest_plain, cluster_occluded,
+        cluster_occluded_plain)
+    from lighthouse2_tpu_torch.render.kernels.trace import (
+        trace_closest, trace_occluded)
+
+    cb, bvh = scene.cbvh, scene.bvh
+    scene_bytes = sum(x.numel() * x.element_size() for x in (
+        bvh.nbox, bvh.left, bvh.right, bvh.count, bvh.prim, bvh.tri9))
+    out = {"cluster_closest": {}, "cluster_occluded": {}}
+    for name, (o, d, tmax, x, inv) in _cluster_batches(
+            scene, view, cfg, dev).items():
+        n = o.shape[0]
+        code, t, visits, subs = cluster_closest(x, cb)
+        occ = cluster_occluded(x, cb)
+        _sync(dev)
+        t0 = time.perf_counter()
+        pc = cluster_closest_plain(x, cb)
+        _sync(dev)
+        pc_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        po = cluster_occluded_plain(x, cb)
+        _sync(dev)
+        po_ms = (time.perf_counter() - t0) * 1e3
+        unperm = (lambda a: a[:n] if inv is None else a[:n][inv])
+        prim = unperm(torch.where(code >= 0, cb.prim.reshape(-1)[
+            code.clamp(min=0).to(torch.int64)], -1))
+        eq = lambda a, b: (a == b).float().mean().item()
+        live_blocks = int((x[7].reshape(-1, BLOCK) > 0).any(-1).sum())
+        c = dict(
+            rays=n, lanes=int(x.shape[1]), live_blocks=live_blocks,
+            hits=int((code >= 0).sum()), occluded=int(occ.sum()),
+            code_match=eq(code, pc[0]), t_match=eq(t, pc[1]),
+            visits_match=eq(visits, pc[2]), subs_match=eq(subs, pc[3]),
+            occ_match=eq(occ, po),
+            t_max_abs_err=(t - pc[1]).abs().max().item(),
+            bvh4_prim_match=eq(prim, trace_closest(o, d, tmax, bvh)[1]),
+            bvh4_occ_match=eq(unperm(occ), trace_occluded(o, d, tmax, bvh)),
+            mean_visits_per_live_block=visits.sum().item() / max(
+                live_blocks, 1),
+            mean_subs_per_live_block=subs.sum().item() / max(live_blocks, 1))
+        print(f"[cluster] {name}: " + json.dumps(c), flush=True)
+        exact = ("code_match", "t_match", "visits_match", "subs_match",
+                 "occ_match")
+        if any(c[k] != 1.0 for k in exact):
+            raise AssertionError(f"cluster kernels and plain versions differ "
+                                 f"on {name}: "
+                                 + str({k: c[k] for k in exact}))
+        if c["bvh4_prim_match"] < AGREE_MIN or c["bvh4_occ_match"] < AGREE_MIN:
+            raise AssertionError(f"cluster / BVH4 agreement below {AGREE_MIN} "
+                                 f"on {name}: prim {c['bvh4_prim_match']}, "
+                                 f"occ {c['bvh4_occ_match']}")
+        ck = _time_ms(lambda: cluster_closest(x, cb), iters, dev)
+        ok_ = _time_ms(lambda: cluster_occluded(x, cb), iters, dev)
+        ray_bytes = n * (12 + 12 + 4)
+        cbd, cbb = _bound(ray_bytes + n * 8 + scene_bytes,
+                          kern["trace_closest"][name]["ops"])
+        obd, obb = _bound(ray_bytes + n + scene_bytes,
+                          kern["trace_occluded"][name]["ops"])
+        out["cluster_closest"][name] = dict(
+            ms=ck, plain_ms=pc_ms, bound_ms=cbd, bound_by=cbb,
+            max_abs_err=c["t_max_abs_err"], grays_per_s=n / ck / 1e6,
+            bvh4_ms=kern["trace_closest"][name]["ms"])
+        out["cluster_occluded"][name] = dict(
+            ms=ok_, plain_ms=po_ms, bound_ms=obd, bound_by=obb,
+            max_abs_err=float((occ != po).any()), grays_per_s=n / ok_ / 1e6,
+            bvh4_ms=kern["trace_occluded"][name]["ms"])
+        print(f"[cluster] {name}: closest {ck:.4f} ms (plain {pc_ms:.1f} ms, "
+              f"BVH4 kernel {kern['trace_closest'][name]['ms']:.4f} ms, "
+              f"bound {cbd:.4f} ms by {cbb}, {cbd / ck:.2%} of it); "
+              f"occluded {ok_:.4f} ms (plain {po_ms:.1f} ms, BVH4 kernel "
+              f"{kern['trace_occluded'][name]['ms']:.4f} ms, bound "
+              f"{obd:.4f} ms by {obb}, {obd / ok_:.2%} of it)", flush=True)
+    return out
+
+
+def _launch_deltas(before, after):
+    return {k: after[k] - before[k] for k in after}
+
+
+def _all_counts():
+    return dict(_counts(), **_cluster_counts())
+
+
+def cluster_main(scene, view, cfg, dev, passes):
+    """[cluster] (b): render_pass with intersector="cluster" (the main
+    path's configuration otherwise), 1 warm-up and `passes` timed passes,
+    each launching each cluster kernel max_path_length times and the BVH4
+    kernels never; the image against the "auto" passes of the same run
+    (FRAC_BAD_MAX, MEAN_REL_MAX: only t-ties between the two structures
+    may differ); one profiled pass. Returns the numbers."""
+    import torch
+    from lighthouse2_tpu_torch.render.wavefront import (
+        AccumState, finalize, render_pass)
+    ccfg = dataclasses.replace(cfg, intersector="cluster")
+    st_auto = AccumState.make(cfg, dev)
+    for _ in range(passes + 1):
+        st_auto, _ = render_pass(scene, view, st_auto, cfg)
+    state = AccumState.make(ccfg, dev)
+    _peak_memory(dev, reset=True)
+    _zero_counts()
+    counts = [_all_counts()]
+    t0 = time.perf_counter()
+    state, _ = render_pass(scene, view, state, ccfg)          # warm-up
+    counts.append(_all_counts())
+    _sync(dev)
+    warm_s = time.perf_counter() - t0
+    all_stats = []
+    t0 = time.perf_counter()
+    for _ in range(passes):
+        state, stats = render_pass(scene, view, state, ccfg)
+        all_stats.append(stats)
+        counts.append(_all_counts())
+    _sync(dev)
+    dt = time.perf_counter() - t0
+    launches = _all_counts()
+    per_pass = [_launch_deltas(a, b) for a, b in zip(counts, counts[1:])]
+    rays = sum(int(s["total_extension"]) + int(s["total_shadow"])
+               for s in all_stats)
+    img, img_auto = finalize(state), finalize(st_auto)
+    res = dict(
+        passes=passes, seconds=dt, warmup_seconds=warm_s,
+        mrays_per_s=rays / dt / 1e6, rays=rays, ms_per_pass=dt * 1e3 / passes,
+        launches=launches, launches_per_pass=per_pass,
+        max_memory_allocated=_peak_memory(dev),
+        image_mean=img.mean().item(), image_mean_auto=img_auto.mean().item(),
+        image_finite=bool(torch.isfinite(img).all()),
+        agreement=_image_agreement(img.cpu().numpy(),
+                                   img_auto.cpu().numpy()))
+    print("[cluster main] " + json.dumps(res), flush=True)
+    want = dict(trace_closest=0, trace_occluded=0,
+                cluster_closest=cfg.max_path_length,
+                cluster_occluded=cfg.max_path_length)
+    if any(p != want for p in per_pass):
+        raise AssertionError(f"a cluster pass must launch {want}, got "
+                             f"{per_pass}")
+    a = res["agreement"]
+    if not (res["image_finite"] and a["frac_bad"] < FRAC_BAD_MAX
+            and a["mean_rel"] < MEAN_REL_MAX):
+        raise AssertionError(f"the cluster image differs from auto's: {a}")
+    res["profile"] = _profile(lambda: render_pass(scene, view, state, ccfg),
+                              dev, "[cluster profile] ")
+    return res
+
+
+def cluster_train(scene, view, cfg, dev, auto_prof):
+    """[cluster] (c): one warm-up and one timed fwd+bwd step of
+    regen_value_and_grad on the cluster path (grads "all": colours, light
+    radiance, per-vertex offsets; remat), its launches (16 + 16 cluster,
+    no BVH4), ms and peak memory; the same step on the "auto" path from the
+    same state: the loss within LOSS_RTOL and each gradient group within
+    GRAD_RTOL, relative L2 (tests/test_torch_grad.py's bounds: both paths
+    take the same samples and hit the same triangles but for t-ties, the
+    offsets' refine terms round differently); the step profiled for the
+    TRAIN_SHARES of its device time, beside `auto_prof`, the "auto" step
+    profiled in [train profile]."""
+    import torch
+    from lighthouse2_tpu_torch.diff.render import regen_value_and_grad
+    from lighthouse2_tpu_torch.render.wavefront import (
+        AccumState, ensure_regen_state)
+    acfg = dataclasses.replace(cfg, remat=True)
+    ccfg = dataclasses.replace(acfg, intersector="cluster")
+    params, target = _headline_params(scene, cfg.width, dev)
+    state = ensure_regen_state(view, AccumState.make(acfg, dev), acfg)
+    regen_value_and_grad(scene, view, state, ccfg, target, params)  # warm-up
+    _sync(dev)
+    _peak_memory(dev, reset=True)
+    _zero_counts()
+    t0 = time.perf_counter()
+    loss_c, g_c, _ = regen_value_and_grad(scene, view, state, ccfg, target,
+                                          params)
+    _sync(dev)
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = _all_counts()
+    peak = _peak_memory(dev)
+    loss_a, g_a, _ = regen_value_and_grad(scene, view, state, acfg, target,
+                                          params)
+    rel = {k: ((g_c[k] - g_a[k]).norm() / g_a[k].norm()).item() for k in g_a}
+    prof = _profile(lambda: regen_value_and_grad(scene, view, state, ccfg,
+                                                 target, params),
+                    dev, "[cluster train profile] ", TRAIN_SHARES)
+    res = dict(ms_per_step=ms, max_memory_allocated=peak, launches=launches,
+               loss=loss_c.item(), loss_auto=loss_a.item(),
+               loss_rel_diff=abs(loss_c.item() - loss_a.item())
+               / max(abs(loss_a.item()), 1e-30),
+               grad_rel_l2=rel, bounds=GRAD_RTOL,
+               grads=_grad_summary(g_c),
+               shares=dict(cluster=prof["shares"], auto=auto_prof["shares"]),
+               device_ms=dict(cluster=prof["device_ms"],
+                              auto=auto_prof["device_ms"]))
+    print("[cluster train] " + json.dumps(res), flush=True)
+    want = dict(trace_closest=0, trace_occluded=0,
+                cluster_closest=cfg.max_path_length,
+                cluster_occluded=cfg.max_path_length)
+    if launches != want:
+        raise AssertionError(f"a cluster fwd+bwd step must launch {want}, "
+                             f"got {launches}")
+    if res["loss_rel_diff"] > LOSS_RTOL or any(
+            rel[k] > b for k, b in GRAD_RTOL.items()):
+        raise AssertionError("cluster and auto fwd+bwd steps disagree")
+    if not all(v["finite"] and v["nonzero"] > 0
+               for v in res["grads"].values()):
+        raise AssertionError(f"cluster gradients: {res['grads']}")
+    return res
+
+
+def cluster_bdpt_shard(scene, view, cfg, dev):
+    """[cluster] (e): one BDPT pass (classic, spp 1, the main path's
+    length) and one scene-sharded pass on a 1x1 NCCL mesh (path
+    CLUSTER_SHARD_PATH; its shard's ClusterBVH cut once, timed apart) with
+    intersector="cluster", each against its "auto" counterpart of the same
+    run, the unsharded classic pass for the sharded one (FRAC_BAD_MAX,
+    MEAN_REL_MAX), with the launches of every kernel: the cluster kernels
+    only."""
+    import torch.distributed as dist
+    from lighthouse2_tpu_torch.parallel.distributed import init_distributed
+    from lighthouse2_tpu_torch.parallel.mesh import make_mesh2d
+    from lighthouse2_tpu_torch.parallel.scene_shard import (
+        render_pass_scene_sharded, shard_scene)
+    from lighthouse2_tpu_torch.render.bdpt import render_pass_bdpt
+    from lighthouse2_tpu_torch.render.kernels.trace import BUILD_DIR
+    from lighthouse2_tpu_torch.render.wavefront import AccumState, render_pass
+
+    def run(fn, c):
+        before = _all_counts()
+        _sync(dev)
+        t0 = time.perf_counter()
+        st, _ = fn(AccumState.make(c, dev), c)
+        _sync(dev)
+        return (st.accumulator.cpu().numpy(), (time.perf_counter() - t0) * 1e3,
+                _launch_deltas(before, _all_counts()))
+
+    res = {}
+    bcfg = dataclasses.replace(cfg, path_regen=False)
+    for tag, fn, c in (
+            ("bdpt", lambda st, c: render_pass_bdpt(scene, view, st, c),
+             bcfg),
+            ("scene_sharded", None, dataclasses.replace(
+                bcfg, max_path_length=CLUSTER_SHARD_PATH))):
+        if fn is None:
+            work = tempfile.mkdtemp(prefix="chip_smoke_cshard_", dir=BUILD_DIR)
+            init_distributed(f"file://{work}/store", world_size=1, rank=0,
+                             device=dev)
+            if dist.get_backend() != "nccl":
+                raise AssertionError("(e) must run on NCCL")
+            mesh = make_mesh2d(1, 1, device=dev)
+            t0 = time.perf_counter()
+            srep, sh, tree = shard_scene(scene, mesh, cluster=True)
+            _sync(dev)
+            shard_s = time.perf_counter() - t0
+            fn = lambda st, c: render_pass_scene_sharded(
+                srep, view, st, c, mesh, sh=sh, shard_cbvh=tree)
+            auto_fn = lambda st, c: render_pass(scene, view, st, c)
+        else:
+            auto_fn = fn
+        try:
+            ccfg = dataclasses.replace(c, intersector="cluster")
+            run(fn, ccfg)                                   # warm-up
+            got, ms, launches = run(fn, ccfg)
+            want, ms_auto, launches_auto = run(auto_fn, c)
+        finally:
+            if tag == "scene_sharded":
+                dist.destroy_process_group()
+                shutil.rmtree(work, ignore_errors=True)
+        res[tag] = dict(ms=ms, ms_auto=ms_auto, launches=launches,
+                        launches_auto=launches_auto,
+                        agreement=_image_agreement(got, want))
+    res["scene_sharded"]["shard_cluster_bvh_seconds"] = shard_s
+    print("[cluster bdpt / scene shard] " + json.dumps(res), flush=True)
+    for tag, r in res.items():
+        a, l = r["agreement"], r["launches"]
+        if not (a["frac_bad"] < FRAC_BAD_MAX and a["mean_rel"] < MEAN_REL_MAX):
+            raise AssertionError(f"[cluster] {tag} differs from auto's: {a}")
+        if (l["trace_closest"] or l["trace_occluded"]
+                or not (l["cluster_closest"] and l["cluster_occluded"])):
+            raise AssertionError(f"[cluster] {tag} launches: {l}")
+    return res
+
+
+def cluster_path(scene, view, cfg, dev, kern, train_prof):
+    """Phase 19, [cluster]: intersector="cluster" (a)-(e). Returns the
+    numbers, with the seconds each part took."""
+    cb = scene.cbvh
+    print(f"[cluster] ClusterBVH: {cb.n_nodes} top nodes, {cb.n_clusters} "
+          f"clusters x {cb.tiles_per_cluster} tile(s), depth "
+          f"{cb.max_depth}; bmat {_tensor_bytes(cb.bmat)} B, pgeo "
+          f"{_tensor_bytes(cb.pgeo)} B", flush=True)
+    res, secs = {}, {}
+    for key, fn in (
+            ("kernels", lambda: cluster_kernels(scene, view, cfg, dev, kern,
+                                                KERNEL_ITERS)),
+            ("main", lambda: cluster_main(scene, view, cfg, dev,
+                                          CLUSTER_PASSES)),
+            ("train", lambda: cluster_train(scene, view, cfg, dev,
+                                            train_prof)),
+            ("reference", lambda: reference_check(dev, "cluster",
+                                                  "[cluster reference] ")),
+            ("bdpt_shard", lambda: cluster_bdpt_shard(scene, view, cfg,
+                                                      dev))):
+        t0 = time.perf_counter()
+        res[key] = fn()
+        secs[key] = time.perf_counter() - t0
+    res["seconds"] = secs
+    print("[cluster] seconds: " + json.dumps(secs), flush=True)
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2105,13 +2522,16 @@ def main() -> int:
         return 1
     try:
         from lighthouse2_tpu_torch.core.types import RenderConfig
+        from lighthouse2_tpu_torch.render.kernels.cluster import (
+            SOURCE as CLUSTER_SOURCE)
         from lighthouse2_tpu_torch.render.kernels.trace import (
-            BUILD_DIR, build_library)
+            BUILD_DIR, SOURCE, build_library)
         from lighthouse2_tpu_torch.scene.bench_scene import bathroom
     except ImportError as e:
         print(f"chip_smoke: run from the repository root ({e})",
               file=sys.stderr)
         return 1
+    SOURCES = (SOURCE, CLUSTER_SOURCE)
     dev = torch.device("cuda", 0)
     card = _sh(["nvidia-smi", "--query-gpu=name,power.limit",
                 "--format=csv,noheader"]).splitlines()[0]
@@ -2125,9 +2545,13 @@ def main() -> int:
               .splitlines()[-1], flush=True)
 
     t0 = time.perf_counter()
-    so, log = build_library()
-    print(f"[build] {so} in {time.perf_counter() - t0:.1f} s\n{log.strip()}",
-          flush=True)
+    # one nvcc for each source, started together
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        built = list(pool.map(build_library, SOURCES))
+    for so, log in built:
+        print(f"[build] {so}\n{log.strip()}", flush=True)
+    print(f"[build] {len(built)} libraries in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     size, path_len = 512, 16
     cfg = RenderConfig(width=size, height=size, spp_per_pass=1,
@@ -2156,7 +2580,7 @@ def main() -> int:
     lambert_prof = profile_pass(scene, view, cfg, state, dev)
     reference_check(dev)
     train_res, train_state = train_path(scene, view, cfg, dev, TRAIN_STEPS)
-    profile_train_step(scene, view, cfg, train_state, dev)
+    train_prof = profile_train_step(scene, view, cfg, train_state, dev)
     grad_reference_check(dev)
 
     disney_res, api = disney_path(cfg, dev, DISNEY_PASSES)
@@ -2252,6 +2676,24 @@ def main() -> int:
           f"{rk['collective_bytes']['rays']['total_bytes']} B over rays a "
           f"pass a rank; pixels off {rk['agreement']['frac_bad']:.2e}",
           flush=True)
+    # the cluster tiles are cut for phase 19 only, so that no earlier phase
+    # holds them
+    scene = host.sync(dev, clusters=True)
+    print("[cluster] sync with the cluster tiles, host seconds: "
+          + json.dumps(host.sync_seconds), flush=True)
+    clus = cluster_path(scene, view, cfg, dev, kern, train_prof)
+    cm, ct = clus["main"], clus["train"]
+    print(f"[cluster] {cm['mrays_per_s']:.3f} Mrays/s, "
+          f"{cm['ms_per_pass']:.1f} ms a pass, peak "
+          f"{cm['max_memory_allocated'] / 1e9:.3f} GB on {card} (bathroom "
+          f"{size}x{size}, path {path_len}, regen, intersector=\"cluster\"); "
+          f"{cm['profile']['device_ms']:.1f} ms of device time, "
+          f"{cm['profile']['device_launches']} device launches; fwd+bwd "
+          f"{ct['ms_per_step']:.1f} ms a step, peak "
+          f"{ct['max_memory_allocated'] / 1e9:.3f} GB, re-attach backward "
+          f"{ct['shares']['cluster']['reattach_index_add']:.1%} of its device "
+          f"time (the auto step's gather backward "
+          f"{ct['shares']['auto']['gather_backward']:.1%})", flush=True)
 
     rows = []
     for name, batch, line, sym, key in (
@@ -2294,6 +2736,30 @@ def main() -> int:
                              for bt in single_ms},
             ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
             bound_by=k["bound_by"], library_ms=None))
+    for name, batch, line, sym in (
+            ("cluster_closest", "bounce1", 229, "cluster_closest_kernel"),
+            ("cluster_occluded", "shadow", 414, "cluster_occluded_kernel")):
+        k = clus["kernels"][name][batch]
+        rows.append(dict(
+            name=name, route="cuda",
+            source="lighthouse2_tpu_torch/csrc/cluster_trace.cu",
+            replaces=f"lighthouse2_tpu/render/kernels/trace.py:{line}",
+            launches=cm["launches"][name],
+            launches_fwd_bwd_per_step=ct["launches"][name],
+            launches_bdpt_per_pass=clus["bdpt_shard"]["bdpt"]["launches"][
+                name],
+            launches_scene_sharded_per_pass=clus["bdpt_shard"][
+                "scene_sharded"]["launches"][name],
+            main_path_ms_per_launch=cm["profile"]["kernel_ms_per_launch"][
+                sym],
+            ms_by_batch={bt: v["ms"] for bt, v in
+                         clus["kernels"][name].items()},
+            plain_ms_by_batch={bt: v["plain_ms"] for bt, v in
+                               clus["kernels"][name].items()},
+            bound_ms_by_batch={bt: v["bound_ms"] for bt, v in
+                               clus["kernels"][name].items()},
+            max_abs_err=k["max_abs_err"], ms=k["ms"], plain_ms=k["plain_ms"],
+            bound_ms=k["bound_ms"], bound_by=k["bound_by"], library_ms=None))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

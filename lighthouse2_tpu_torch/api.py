@@ -12,7 +12,8 @@ loop (rendersystem.cpp:214-301):
 Differences: create takes a `device` (default: the card, raising without
 one; "cpu" runs the plain versions on the host; see device.resolve_device)
 and the scene is synced to it with scene.sync(device, rebuild_bvh=
-config.use_bvh); probe traces through the closest-hit kernel on a card
+config.use_bvh), with the cluster tiles when config.intersector is
+"cluster"; probe traces through the closest-hit kernel on a card
 (render/probe.py).
 """
 from __future__ import annotations
@@ -81,7 +82,9 @@ class RenderAPI:
 
     def device_scene(self):
         """The synced DeviceScene (for instrumentation)."""
-        return self.scene.sync(self.device, rebuild_bvh=self.config.use_bvh)
+        return self.scene.sync(
+            self.device, rebuild_bvh=self.config.use_bvh,
+            clusters=self.config.intersector == "cluster")
 
     def probe(self, x: int, y: int) -> dict:
         """Pixel probe (core_api_base.h:57-60, rendersystem.cpp:249-256):

@@ -18,10 +18,12 @@ class RenderConfig:
 
     The port implements the classic and the path-regeneration executors
     (with remat), the filter's G-buffer stream (classic executor only),
-    the Lambert and Disney BSDFs, sky IBL and the brute-force intersector
-    (use_bvh=False or intersector="brute"; "auto" and "lockstep" take the
-    trace kernels); render entry points reject what it does not implement
-    yet (scene sharding, intersector="cluster")."""
+    the Lambert and Disney BSDFs, sky IBL, the brute-force intersector
+    (use_bvh=False or intersector="brute") and the cluster-tile kernels
+    (intersector="cluster"); "auto" and "lockstep" take the BVH4 trace
+    kernels ("auto" never resolves to "cluster", where JAX's does on an
+    accelerator). render_pass rejects scene_sharded=True: that pass is
+    parallel/scene_shard.py's."""
     width: int = 512
     height: int = 512
     spp_per_pass: int = 1

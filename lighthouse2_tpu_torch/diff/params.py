@@ -11,10 +11,11 @@ recomputed in torch, so gradients flow from pixels back to the parameters:
     refine_hit re-evaluates each hit (bvh/traverse.py), so vertex gradients
     are the reparameterised-hit estimator.
 
-Difference from the JAX package: the trace kernels test DeviceBVH.tri4, the
-leaf-ordered float4 triangle rows of bvh/wide.py, where the JAX package
-refreshes its cluster tiles (rebake_geometry); displace_vertices refreshes
-tri4 (and the BVH2 walk's bvh.tri9) from the displaced triangles.
+Difference from the JAX package: the BVH4 trace kernels test
+DeviceBVH.tri4, the leaf-ordered float4 triangle rows of bvh/wide.py, so
+displace_vertices refreshes tri4 (and the BVH2 walk's bvh.tri9) from the
+displaced triangles, besides the cluster tiles (rebake_geometry) that JAX
+refreshes.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ import dataclasses
 
 import torch
 
+from lighthouse2_tpu_torch.bvh.clusters import rebake_geometry
 from lighthouse2_tpu_torch.core.geometry import cross
 from lighthouse2_tpu_torch.scene.device_scene import DeviceScene
 
@@ -55,7 +57,9 @@ def displace_vertices(scene: DeviceScene, offset) -> DeviceScene:
     face normal, area and the refine layout tri9 are recomputed. The
     triangles the traversal tests (bvh.tri4, and bvh.tri9 for the BVH2
     walk) are refreshed, detached, so that shadow rays leaving the displaced
-    surface do not hit its stale copy; the boxes stay as they are."""
+    surface do not hit its stale copy, and so are the cluster tiles of a
+    scene that has them (rebake_geometry), so that the cluster kernels
+    never trace stale tiles; the boxes stay as they are."""
     tris = scene.tris
     offset = torch.broadcast_to(
         torch.as_tensor(offset, dtype=torch.float32, device=tris.v0.device),
@@ -72,13 +76,15 @@ def displace_vertices(scene: DeviceScene, offset) -> DeviceScene:
     tris = dataclasses.replace(
         tris, v0=v0, e1=e1, e2=e2, face_n=cr / nlen[:, None], area=area,
         inv_area=1.0 / torch.clamp(area, min=1e-30), tri9=tri9)
-    bvh = scene.bvh
+    bvh, cbvh = scene.bvh, scene.cbvh
     with torch.no_grad():
         tri9_d = tri9.detach()
         tri4 = bvh.tri4.clone()
         tri4.view(-1, 3, 4)[:, :, :3] = _leaf_rows(tri9_d, bvh.prim)
+        if cbvh is not None:
+            cbvh = rebake_geometry(cbvh, tri9_d)
     return dataclasses.replace(
-        scene, tris=tris,
+        scene, tris=tris, cbvh=cbvh,
         bvh=dataclasses.replace(bvh, tri9=tri9_d, tri4=tri4))
 
 

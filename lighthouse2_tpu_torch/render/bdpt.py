@@ -31,8 +31,6 @@ Differences from the JAX package:
     BDPT_NO_T1_CHAINS when it is imported; this module reads neither and
     keeps their defaults: the t=1 splats at scale 1 and the t=1 strategy
     in the eye-side MIS chain;
-  - shading data comes from get_shading_data (JAX's make_shading also has
-    the cluster payload branch, which is not ported);
   - whether the scene has an area or point light is a host bool (the
     static s_tri / s_point counts), where JAX tests device scalars; the
     light walk is traced either way, so the launches do not depend on it;
@@ -57,11 +55,10 @@ from lighthouse2_tpu_torch.core.types import RenderConfig, ViewPyramid
 from lighthouse2_tpu_torch.render import bsdf_disney, bsdf_lambert
 from lighthouse2_tpu_torch.render.lights import (
     emission_pick_prob, sample_emission)
-from lighthouse2_tpu_torch.render.shading import get_shading_data
 from lighthouse2_tpu_torch.render.sky import sample_skydome
 from lighthouse2_tpu_torch.render.wavefront import (
     AccumState, _clamp_intensity, _fixnan, _intersect, _occluded,
-    generate_eye_rays, untile_image)
+    generate_eye_rays, make_shading, prepare_cluster_pay, untile_image)
 
 # per-side depth cap (RenderCore_OptixPrime_BDPT/core_settings.h:45-47)
 LIGHT_DEPTH = 5
@@ -92,7 +89,7 @@ def _to_area(pdf_sa, cos_at_target, dist2):
 
 
 def _walk(scene, config: RenderConfig, bsdf_mod, o, d, beta, pdf_fwd1_sa,
-          seed, depth, cos_from_prev=None):
+          seed, depth, cos_from_prev=None, pay_tiles=None):
     """The BSDF random walk shared by both subpaths (extendEyePath /
     extendLightPath). o, d: the first segment; beta [N,3]: the throughput
     arriving at vertex 1; pdf_fwd1_sa: the solid-angle pdf of d at the
@@ -109,12 +106,12 @@ def _walk(scene, config: RenderConfig, bsdf_mod, o, d, beta, pdf_fwd1_sa,
     verts, misses = [], []
     prev_ns = pdf_fwd_sa_next = None
     for i in range(depth):
-        t, prim, u, v = _intersect(scene, o, d, alive, config)
+        t, prim, u, v, payload = _intersect(scene, o, d, alive, config,
+                                            pay_tiles=pay_tiles)
         hit = alive & (prim >= 0)
         misses.append((alive & (prim < 0), beta, d))
         t = torch.where(hit, t, 1.0)
-        sd = get_shading_data(scene, d, t, prim, u, v, 0.0,
-                              consistent_normals=config.consistent_normals)
+        sd = make_shading(scene, d, t, prim, u, v, 0.0, config, payload)
         pos = o + t[:, None] * d
         dist2 = torch.clamp(t * t, min=1e-12)
         cos_here = torch.abs(dot(d, sd.n_shading))
@@ -238,6 +235,7 @@ def trace_paths_bdpt(scene, view: ViewPyramid, config: RenderConfig,
     s_e = min(EYE_DEPTH, config.max_path_length)
     dev = view.pos.device
     lights = scene.lights
+    pay_tiles = prepare_cluster_pay(scene, config)
 
     # ---- eye subpath --------------------------------------------------------
     paths = generate_eye_rays(view, config, sample_base)
@@ -256,7 +254,7 @@ def trace_paths_bdpt(scene, view: ViewPyramid, config: RenderConfig,
     p_omega_eye = (f_ax * f_ax) / (a_film * cos_eye ** 3)
     everts, emisses = _walk(scene, config, bsdf_mod, paths["origin"],
                             paths["dir"], paths["throughput"], p_omega_eye,
-                            eseed, s_e)
+                            eseed, s_e, pay_tiles=pay_tiles)
 
     # ---- light subpath ------------------------------------------------------
     lseed = rng_mod.raygen_seed(paths["path_idx"] ^ 0x85EBCA6B, sample_base)
@@ -282,7 +280,8 @@ def trace_paths_bdpt(scene, view: ViewPyramid, config: RenderConfig,
                            le["origin"] + geo_eps * le["normal"])
     lverts, _ = _walk(scene, config, bsdf_mod, l_origin, le["dir"],
                       torch.where(y0["valid"][:, None], y1_beta, 0.0),
-                      le["pdf_dir"], lseed, s_l - 1, cos_from_prev=cos0)
+                      le["pdf_dir"], lseed, s_l - 1, cos_from_prev=cos0,
+                      pay_tiles=pay_tiles)
 
     rgb = torch.zeros((n, 3), dtype=torch.float32, device=dev)
     n_conn = []

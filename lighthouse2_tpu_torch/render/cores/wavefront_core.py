@@ -17,8 +17,9 @@ Counterpart of lighthouse2_tpu/render/cores/wavefront_core.py:
 Differences: the cores run eagerly on the device the scene is on and wait
 with torch.cuda.synchronize where the JAX package calls
 jax.block_until_ready; MinimalCore's .at[idx].max is scatter_reduce "amax";
-PreviewCore traces through the port's _trace (the closest-hit kernel on a
-card, one launch a render), _refine and get_shading_data;
+PreviewCore traces through the port's _intersect (a closest-hit kernel on
+a card, one launch a render) and make_shading, with the cluster path's
+payload pack prepared per render as JAX's core does;
 FilteredWavefrontCore's stats add "pass_time" (render_pass) and
 "filter_time" (SVGF + TAA + unsharpen), each closed by a synchronize, and
 the per-bounce ray counts as WavefrontCore's do; FilteredWavefrontCore has
@@ -264,20 +265,19 @@ class PreviewCore(RenderCore):
 
     @staticmethod
     def _pass(device_scene, v, cfg):
-        from lighthouse2_tpu_torch.render.shading import get_shading_data
         from lighthouse2_tpu_torch.render.sky import sample_skydome
         from lighthouse2_tpu_torch.render.wavefront import (
-            _refine, _trace, generate_eye_rays, untile_image)
+            _intersect, generate_eye_rays, make_shading, prepare_cluster_pay,
+            untile_image)
         paths = generate_eye_rays(v, cfg, 0)
         o, d = paths["origin"], paths["dir"]
-        t, prim, u, uv_v = _refine(device_scene, o, d,
-                                   *_trace(device_scene, o, d,
-                                           paths["alive"], cfg))
+        t, prim, u, uv_v, payload = _intersect(
+            device_scene, o, d, paths["alive"], cfg,
+            pay_tiles=prepare_cluster_pay(device_scene, cfg))
         hit = prim >= 0
         ts = torch.where(hit, t, 1.0)
-        sd = get_shading_data(device_scene, d, ts, prim, u, uv_v,
-                              v.spread_angle,
-                              consistent_normals=cfg.consistent_normals)
+        sd = make_shading(device_scene, d, ts, prim, u, uv_v, v.spread_angle,
+                          cfg, payload)
         ndl = torch.abs(dot(sd.n_shading, -d))
         lit = sd.color * (0.25 + 0.75 * ndl)[:, None]
         emis = torch.where(sd.emissive[:, None], sd.color, lit)

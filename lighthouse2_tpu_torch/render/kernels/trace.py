@@ -2,7 +2,9 @@
 
 Counterpart of lighthouse2_tpu/render/kernels/trace.py, whose two Pallas
 kernels (_make_closest_kernel and _make_anyhit_kernel, launched by
-_trace_chunk and wrapped by trace_cluster_bvh) these replace. Both kernels
+_trace_chunk and wrapped by trace_cluster_bvh) these replace on the BVH4
+path (intersector "auto"); render/kernels/cluster.py holds their second
+counterparts, which take the Pallas kernels' own inputs. Both kernels here
 walk the BVH4 that bvh/wide.py packs at upload (DeviceBVH.node4, .tri4); the
 CUDA source explains the design. Their plain PyTorch version is bvh/wide.py
 (wide_intersect, wide_occluded), which walks the same BVH4 in the same order;

@@ -7,11 +7,13 @@ bvh_heatmap, gbuffer_views, bvh_print and probe_pixel. Differences:
   - bvh_heatmap colours the per-ray step counts (BVH4 node visits) of
     trace_closest(stats=True), the closest-hit kernel on a card and its plain
     BVH4 walk on the CPU, where JAX counts the steps of its BVH2 lockstep
-    walk (or the cluster visits of its Pallas kernel);
+    walk; on the cluster path (intersector="cluster") both colour the
+    per-block tile-visit counter of the cluster kernel (whose walk schedule
+    differs from the Pallas kernel's, render/kernels/cluster.py);
   - gbuffer_views runs the classic executor with filter_enabled, whatever
     config.path_regen says (as JAX's render_pass_jit does);
-  - bvh_print prints the BVH2 line exactly as JAX does and, in place of
-    JAX's ClusterBVH line, a line on the BVH4 that the kernels walk;
+  - bvh_print prints the BVH2 line exactly as JAX does, then a line on the
+    BVH4 that the kernels walk, then JAX's ClusterBVH line;
   - probe_pixel traces through trace_closest (the kernel on a card), where
     JAX walks its BVH2 in lockstep; without a BVH both take the brute force.
 """
@@ -24,6 +26,9 @@ import torch
 
 from lighthouse2_tpu_torch.core.geometry import (
     BIG_T, intersect_bruteforce, normalize)
+from lighthouse2_tpu_torch.bvh.clusters import PAY_VALID
+from lighthouse2_tpu_torch.render.kernels.cluster import (
+    PAY_STAT_VISITS, trace_cluster_bvh)
 from lighthouse2_tpu_torch.render.kernels.trace import trace_closest
 
 
@@ -52,12 +57,18 @@ def _colormap(x):
 def bvh_heatmap(scene, view, config) -> np.ndarray:
     """BVH cost heatmap [H,W,3], the ColorDebugBVH view
     (RenderCore_Bart/raytracer.cpp:102-120): each pixel-centre ray's node
-    visits, over the image's peak. Black-blue without a BVH."""
+    visits (on the cluster path its 1024-ray block's tile visits), over the
+    image's peak. Black-blue without a BVH."""
     from lighthouse2_tpu_torch.render.wavefront import _pick_intersector
-    if _pick_intersector(scene, config) == "bvh":
+    mode = _pick_intersector(scene, config)
+    if mode == "bvh":
         o, d = _pixel_rays(view, config)
         counts = trace_closest(o, d, BIG_T, scene.bvh, stats=True)[4][0]
         counts = counts.cpu().numpy().astype(np.float32)
+    elif mode == "cluster":
+        o, d = _pixel_rays(view, config)
+        _, _, payload = trace_cluster_bvh(o, d, scene.cbvh, BIG_T)
+        counts = payload[PAY_STAT_VISITS].cpu().numpy()
     else:
         counts = np.zeros((config.width * config.height,), np.float32)
     peak = max(float(counts.max()), 1.0)
@@ -91,29 +102,38 @@ def gbuffer_views(scene, view, config) -> np.ndarray:
 
 def bvh_print(scene) -> str:
     """BVH::Print (RenderCore_Bart/bvh.cpp:304-314): the shape of the
-    scene's BVH2 and of the BVH4 the trace kernels walk."""
+    scene's BVH2, of the BVH4 the trace kernels walk and of the ClusterBVH
+    the cluster kernels walk."""
+    lines = []
     b = getattr(scene, "bvh", None)
-    if b is None:
-        return "no acceleration structures"
-    count = b.count.cpu().numpy()
-    leaves = count > 0
-    lines = [
-        f"BVH2 (lockstep): {count.shape[0]} nodes, "
-        f"{int(leaves.sum())} leaves, "
-        f"{int(count[leaves].sum())} prim slots, "
-        f"max leaf size {int(count.max())}, "
-        f"mean {float(count[leaves].mean()):.2f}"]
-    # node4 record: floats 24..27 are the child codes, 28..31 the counts
-    # (-1 = empty slot, 0 = interior child, > 0 = leaf of that many prims)
-    cnt4 = b.node4[:, 28:32].cpu().numpy().view(np.int32)
-    used = cnt4 >= 0
-    lines.append(
-        f"BVH4 (trace kernels): {b.node4.shape[0]} nodes "
-        f"({int(b.node4.numel() * 4)} bytes), depth {b.depth4}, "
-        f"{int(used.sum())} child slots used of {cnt4.size}, "
-        f"{int((cnt4 > 0).sum())} leaf children, "
-        f"{b.tri4.shape[0]} triangles")
-    return "\n".join(lines)
+    if b is not None:
+        count = b.count.cpu().numpy()
+        leaves = count > 0
+        lines.append(
+            f"BVH2 (lockstep): {count.shape[0]} nodes, "
+            f"{int(leaves.sum())} leaves, "
+            f"{int(count[leaves].sum())} prim slots, "
+            f"max leaf size {int(count.max())}, "
+            f"mean {float(count[leaves].mean()):.2f}")
+        # node4 record: floats 24..27 are the child codes, 28..31 the counts
+        # (-1 = empty slot, 0 = interior child, > 0 = leaf of that many prims)
+        cnt4 = b.node4[:, 28:32].cpu().numpy().view(np.int32)
+        used = cnt4 >= 0
+        lines.append(
+            f"BVH4 (trace kernels): {b.node4.shape[0]} nodes "
+            f"({int(b.node4.numel() * 4)} bytes), depth {b.depth4}, "
+            f"{int(used.sum())} child slots used of {cnt4.size}, "
+            f"{int((cnt4 > 0).sum())} leaf children, "
+            f"{b.tri4.shape[0]} triangles")
+    c = getattr(scene, "cbvh", None)
+    if c is not None:
+        valid = int((c.pgeo[:, PAY_VALID, :] > 0).sum())
+        lines.append(
+            f"ClusterBVH: {c.n_nodes} top nodes, {c.n_clusters} clusters x "
+            f"{c.tiles_per_cluster} tile(s), depth {c.max_depth}, "
+            f"{c.n_prims} prims ({valid} tile slots used, "
+            f"{c.n_clusters * c.tiles_per_cluster * 128} capacity)")
+    return "\n".join(lines) if lines else "no acceleration structures"
 
 
 def probe_pixel(scene, view, config, x: int, y: int) -> dict:

@@ -8,22 +8,31 @@ OptiX7 barycentric convention, textures with ray-cone LOD, consistent
 normals, normal maps and the back-face flip.
 
 get_shading_data gathers from the scene's triangle and material tables.
-shading_from_payload reads the same data from per-ray payload rows, which
-scene-sharded rendering (parallel/scene_shard.py) assembles across shards;
-no device holds the global triangle tables there.
+shading_from_payload reads the same data from per-ray payload rows: with
+geom_reattach=True the cluster trace path's 72-row payload
+(bvh/clusters.py PAY_*), whose gradients re-attach to the global tables
+through render/fetch.py reattach_rows; with geom_reattach=False the 63-row
+payload (PAY_* below) that scene-sharded rendering
+(parallel/scene_shard.py) assembles across shards, used as it is; no
+device holds the global triangle tables there.
 
 Differences from the JAX package:
-  - the payload is narrower (PAY_ROWS = 63 rows, not 72): no sublane pads
-    (JAX rows 38:40 and 68:72), and no PAY_PRIM, PAY_MAT or PAY_VALID rows.
-    The hit's global triangle id rides beside the payload as an int32
-    tensor (exact at any triangle count, where a float32 row is exact only
-    below 2^24), and the material id and the valid flag have no reader once
-    the material rows are in the payload;
-  - shading_from_payload takes that id as its `prim` argument, and only
-    the geom_reattach=False branch: geom_reattach=True re-attaches the
-    gradient of the TPU kernel's payload to the global tables
-    (render/fetch.py, not ported) and raises ValueError. Its default is
-    False, JAX's is True.
+  - the scene-sharded payload is narrower (PAY_ROWS = 63 rows, not 72): no
+    sublane pads (JAX rows 38:40 and 68:72), and no PAY_PRIM, PAY_MAT or
+    PAY_VALID rows. The hit's global triangle id rides beside the payload
+    as an int32 tensor (exact at any triangle count, where a float32 row is
+    exact only below 2^24), and the material id and the valid flag have no
+    reader once the material rows are in the payload;
+  - shading_from_payload takes that id as its `prim` argument on both
+    branches (the cluster path reads it from ClusterBVH.prim); the
+    material id of geom_reattach=True comes from the payload's PAY_MAT row
+    as in JAX. Its default is geom_reattach=False, JAX's is True;
+  - lanes without a hit take no gradient and get a unit area facing the
+    ray on both branches: JAX's geom_reattach=True re-attaches their
+    material rows to material 0 and computes an infinite light pdf from
+    the miss column's zero rows, whose zero cotangent turns into NaN
+    (found on the port's vertex gradients). The values on hit lanes are
+    JAX's.
 """
 from __future__ import annotations
 
@@ -31,8 +40,10 @@ import dataclasses
 
 import torch
 
+from lighthouse2_tpu_torch.bvh import clusters as CL
 from lighthouse2_tpu_torch.core.geometry import (
     consistent_normal, cross, dot, normalize, oriented_frame)
+from lighthouse2_tpu_torch.render.fetch import reattach_rows
 from lighthouse2_tpu_torch.render.textures import fetch_trilinear
 from lighthouse2_tpu_torch.scene.device_scene import DeviceScene
 from lighthouse2_tpu_torch.scene.host_material import MAT_HASALPHA
@@ -157,18 +168,22 @@ def get_shading_data(scene: DeviceScene, d, t, prim, u, v, spread_angle,
 def shading_from_payload(scene: DeviceScene, d, t, prim, payload, u, v,
                          spread_angle, consistent_normals=True,
                          geom_reattach=False) -> ShadingData:
-    """GetShadingData from per-ray payload rows [PAY_ROWS, N] of the hit
-    triangles (prim >= 0 hits, the global triangle id). The rows are used
-    as they are, so their gradient flows back through whatever assembled
-    them. n_geom and the area come from e1 x e2 (JAX shading.py:96-97), not
-    from the host's face normal."""
+    """GetShadingData from per-ray payload rows of the hit triangles (prim
+    >= 0 hits, the global triangle id). n_geom and the area come from
+    e1 x e2 (JAX shading.py:96-97), not from the host's face normal.
+
+    geom_reattach=True: `payload` is the cluster trace path's [72, N]
+    (bvh/clusters.py PAY_*), which carries no gradient; the geometry,
+    attribute, LOD and material rows re-attach to the scene's tri9, vertex
+    attributes, lod and material_pack (render/fetch.py). Otherwise the
+    rows [PAY_ROWS, N] are used as they are, so their gradient flows back
+    through whatever assembled them (scene sharding)."""
+    w = 1.0 - u - v
     if geom_reattach:
-        raise ValueError("shading_from_payload(geom_reattach=True) needs the "
-                         "cluster payload re-attach (render/fetch.py), which "
-                         "is not ported; payloads come from scene sharding")
+        return _shading_reattached(scene, d, t, prim, payload.detach(), u,
+                                   v, w, spread_angle, consistent_normals)
     ltri = torch.where(prim >= 0, payload[PAY_LTRI].detach().to(torch.int32),
                        -1)
-    w = 1.0 - u - v
     g9 = payload[PAY_V0:PAY_V0 + 9]
     ga = payload[PAY_N0:PAY_N0 + 18]
     e1 = _v3(g9, 3)
@@ -196,6 +211,46 @@ def shading_from_payload(scene: DeviceScene, d, t, prim, payload, u, v,
                              ltri=ltri, lod_base=payload[PAY_LOD],
                              tangent=_v3(payload, PAY_TAN),
                              bitangent=_v3(payload, PAY_BIT))
+
+
+def _shading_reattached(scene, d, t, prim, payload, u, v, w, spread_angle,
+                        consistent_normals) -> ShadingData:
+    """shading_from_payload(geom_reattach=True) on the cluster payload
+    (JAX shading.py:112-152): the rows re-attach to the global packs."""
+    tris = scene.tris
+    hit = prim >= 0
+    mat = torch.where(hit, payload[CL.PAY_MAT].to(torch.int64), -1)
+    ltri = torch.where(hit, payload[CL.PAY_LTRI].to(torch.int32), -1)
+    g9 = reattach_rows(tris.tri9, prim, payload[CL.PAY_V0:CL.PAY_V0 + 9])
+    apack = torch.cat([tris.n0.T, tris.n1.T, tris.n2.T,         # 0:9
+                       tris.uv0.T, tris.uv1.T, tris.uv2.T,      # 9:15
+                       tris.alpha.T], 0)                        # 15:18
+    ga = reattach_rows(apack, prim, payload[CL.PAY_N0:CL.PAY_N0 + 18])
+    lodb = reattach_rows(tris.lod[None], prim,
+                         payload[CL.PAY_LOD:CL.PAY_LOD + 1])[0]
+    e1 = _v3(g9, 3)
+    e2 = _v3(g9, 6)
+    cr = cross(e1, e2)
+    # miss lanes (the pack's zero miss column): a unit area facing the ray,
+    # as on the sharded branch below
+    area = torch.where(hit, 0.5 * torch.sqrt(
+        torch.clamp(dot(cr, cr), min=1e-30)), 1.0)
+    n_geom = torch.where(hit[:, None], normalize(cr), -d.detach())
+    n_int = normalize(w[:, None] * _v3(ga, 0) + u[:, None] * _v3(ga, 3)
+                      + v[:, None] * _v3(ga, 6))
+    uv = (w[:, None] * torch.stack([ga[9], ga[10]], -1)
+          + u[:, None] * torch.stack([ga[11], ga[12]], -1)
+          + v[:, None] * torch.stack([ga[13], ga[14]], -1))
+    m = reattach_rows(material_pack(scene.materials), mat,
+                      payload[CL.PAY_GEO_ROWS:CL.PAY_GEO_ROWS + MAT_PACK_ROWS])
+    mi = m[18:28].detach().to(torch.int32)
+    return _assemble_shading(scene, d, t, prim, u, v, w, spread_angle,
+                             consistent_normals, n_geom, n_int, uv, m, mi,
+                             color=_v3(m, 0), rough=m[9],
+                             alpha3=(ga[15], ga[16], ga[17]), area=area,
+                             ltri=ltri, lod_base=lodb,
+                             tangent=_v3(payload, CL.PAY_TAN),
+                             bitangent=_v3(payload, CL.PAY_BIT))
 
 
 def _assemble_shading(scene, d, t, prim, u, v, w, spread_angle,

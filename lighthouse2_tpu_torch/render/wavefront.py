@@ -40,11 +40,21 @@ Differences from the JAX package:
   - masks are bool tensors, which carry no gradient, so the stop_gradient
     JAX puts on the dead mask and the completed-sample count has no
     counterpart;
-  - the intersector is the trace kernels (trace_closest / trace_occluded)
-    whenever the scene has a BVH and config.use_bvh, with intersector
-    "auto" or "lockstep"; "brute" (or use_bvh=False, or a scene without a
-    BVH) takes core/geometry.py's brute force, on detached rays as the
-    kernels take them; "cluster" raises, the cluster tiles are not ported;
+  - the intersector is the BVH4 trace kernels (trace_closest /
+    trace_occluded) whenever the scene has a BVH and config.use_bvh, with
+    intersector "auto" or "lockstep"; "auto" never resolves to "cluster"
+    (JAX's resolves to its Pallas cluster kernel on an accelerator), which
+    stays a choice for the benchmark; "cluster" takes the cluster-tile
+    kernels (render/kernels/cluster.py) on the scene's ClusterBVH (cut by
+    HostScene.sync(clusters=True)) and drops to the BVH4 kernels without
+    one, as JAX drops to its lockstep walk;
+    "brute" (or use_bvh=False, or a scene without a BVH) takes
+    core/geometry.py's brute force, on detached rays as the kernels take
+    them;
+  - on the cluster path the trace returns the kernel's payload, the hit's
+    int32 triangle id (ClusterBVH.prim) and t; the refine re-attaches the
+    payload's geometry rows to tri9 (render/fetch.py) in the shade stage,
+    so remat recomputes it as for the other paths;
   - filter_enabled with path_regen raises ValueError where JAX asserts;
   - render_pass rejects scene_sharded=True: the scene-sharded pass is
     parallel/scene_shard.py's render_pass_scene_sharded, which runs
@@ -73,12 +83,15 @@ from lighthouse2_tpu_torch.core.geometry import (
 from lighthouse2_tpu_torch.core.types import RenderConfig, ViewPyramid
 from lighthouse2_tpu_torch.device import resolve_device
 from lighthouse2_tpu_torch.render import bsdf_disney, bsdf_lambert
+from lighthouse2_tpu_torch.render.fetch import reattach_rows
+from lighthouse2_tpu_torch.render.kernels.cluster import (
+    bake_material_rows, prepare_pay_tiles, ray_sort_perm, trace_cluster_bvh)
 from lighthouse2_tpu_torch.render.kernels.trace import trace_closest, trace_occluded
 from lighthouse2_tpu_torch.render.lights import (
     calculate_light_pdf, light_pick_prob, random_point_on_light,
     sky_pick_prob)
 from lighthouse2_tpu_torch.render.shading import (
-    PAY_V0, get_shading_data, shading_from_payload)
+    PAY_V0, get_shading_data, material_pack, shading_from_payload)
 from lighthouse2_tpu_torch.render.sky import sample_skydome, sky_pdf
 from lighthouse2_tpu_torch.scene.device_scene import DeviceScene
 
@@ -239,65 +252,118 @@ def generate_eye_rays(view: ViewPyramid, config: RenderConfig, sample_base,
 
 def _pick_intersector(scene: DeviceScene, config: RenderConfig) -> str:
     """"brute" without a BVH (config.use_bvh False, intersector "brute" or
-    a scene synced without one), else "bvh": the trace kernels."""
+    a scene synced without one); "cluster" for intersector="cluster" on a
+    scene with cluster tiles; else "bvh": the BVH4 trace kernels."""
     mode = config.intersector
-    if mode not in ("auto", "lockstep", "brute"):
-        raise ValueError(f"render_pass does not support intersector={mode!r} "
-                         f"(the cluster tiles are not ported)")
-    if not config.use_bvh or mode == "brute" or scene.bvh is None:
+    if mode not in ("auto", "lockstep", "brute", "cluster"):
+        raise ValueError(f"render_pass does not support intersector={mode!r}")
+    if not config.use_bvh or mode == "brute":
         return "brute"
-    return "bvh"
+    if mode == "cluster" and getattr(scene, "cbvh", None) is not None:
+        return "cluster"
+    return "brute" if scene.bvh is None else "bvh"
 
 
-def _trace(scene: DeviceScene, o, d, alive, config: RenderConfig):
-    """Closest hit (t, prim, u, v) through the trace kernel, or by brute
-    force where _pick_intersector says so; dead lanes get tmax = 0."""
+def prepare_cluster_pay(scene: DeviceScene, config: RenderConfig):
+    """The payload pack of the cluster path (render/kernels/cluster.py
+    prepare_pay_tiles), its material rows baked from the live materials;
+    None on the other paths. Built once a pass and handed to every bounce."""
+    if _pick_intersector(scene, config) != "cluster":
+        return None
+    paym = bake_material_rows(scene.cbvh,
+                              material_pack(scene.materials).detach())
+    return prepare_pay_tiles(scene.cbvh, paym)
+
+
+def _trace(scene: DeviceScene, o, d, alive, config: RenderConfig,
+           pay_tiles=None, sort_key="dir"):
+    """Closest hit (t, prim, u, v, payload) through the trace kernels, or by
+    brute force where _pick_intersector says so; dead lanes get tmax = 0.
+    On the cluster path u and v are None (the refine computes them) and
+    payload is the kernel's [72, N] payload; `sort_key` orders the rays
+    first (ray_sort_perm: None for tiled primaries, "dir" for bounces)
+    when config.ray_sort and the tree has at least 16 clusters. payload
+    is None on the other paths."""
     tmax = torch.where(alive, BIG_T, 0.0)
-    if _pick_intersector(scene, config) == "brute":
+    mode = _pick_intersector(scene, config)
+    if mode == "brute":
         t = scene.tris
-        return intersect_bruteforce(o.detach(), d.detach(), t.v0, t.e1, t.e2,
-                                    t_max=tmax, chunk=config.tri_chunk)
-    return trace_closest(o, d, tmax, scene.bvh)
+        return (*intersect_bruteforce(o.detach(), d.detach(), t.v0, t.e1,
+                                      t.e2, t_max=tmax,
+                                      chunk=config.tri_chunk), None)
+    if mode == "bvh":
+        return (*trace_closest(o, d, tmax, scene.bvh), None)
+    cb = scene.cbvh
+    if pay_tiles is None:
+        pay_tiles = prepare_cluster_pay(scene, config)
+    perm = inv = None
+    if sort_key is not None and config.ray_sort and cb.n_clusters >= 16:
+        perm, inv = ray_sort_perm(o, d, tmax, cb, key=sort_key)
+    t, prim, payload = trace_cluster_bvh(o, d, cb, tmax, pay_tiles=pay_tiles,
+                                         perm=perm, inv=inv)
+    return t, prim, None, None, payload
 
 
 def _occluded(scene: DeviceScene, o, d, tmax, config: RenderConfig):
-    """Shadow-ray occlusion through the any-hit kernel or by brute force."""
-    if _pick_intersector(scene, config) == "brute":
+    """Shadow-ray occlusion through the any-hit kernels or by brute force.
+    The cluster path orders the rays by origin and direction octant first
+    (config.shadow_sort, at least 16 clusters)."""
+    mode = _pick_intersector(scene, config)
+    if mode == "brute":
         t = scene.tris
         return occluded_bruteforce(o.detach(), d.detach(), tmax.detach(),
                                    t.v0, t.e1, t.e2, chunk=config.tri_chunk)
-    return trace_occluded(o, d, tmax, scene.bvh)
+    if mode == "bvh":
+        return trace_occluded(o, d, tmax, scene.bvh)
+    cb = scene.cbvh
+    perm = inv = None
+    if config.shadow_sort and cb.n_clusters >= 16:
+        perm, inv = ray_sort_perm(o, d, tmax, cb, key="origin_octant")
+    return trace_cluster_bvh(o, d, cb, tmax, anyhit=True, perm=perm, inv=inv)
 
 
-def _refine(scene: DeviceScene, o, d, t, prim, u, v, payload=None):
+def _refine(scene: DeviceScene, o, d, t, prim, u, v, payload=None,
+            reattach=False):
     """(t, u, v) recomputed differentiably from the winning triangle, read
-    from the payload rows when there are some; lanes whose re-test loses
-    the hit keep the traversal values."""
+    from the payload rows when there are some (re-attached to tri9 with
+    `reattach`, the cluster path); lanes whose re-test loses the hit keep
+    the traversal's t, and its u, v where it has them (the cluster path
+    keeps the refine's, as JAX)."""
     if payload is None:
         rt, ru, rv, ok = refine_hit(o, d, prim, scene.tris.tri9)
     else:
-        rt, ru, rv, ok = refine_hit_rows(o, d, prim,
-                                         payload[PAY_V0:PAY_V0 + 9])
+        g9 = payload[PAY_V0:PAY_V0 + 9]
+        if reattach:
+            g9 = reattach_rows(scene.tris.tri9, prim, g9)
+        rt, ru, rv, ok = refine_hit_rows(o, d, prim, g9)
     keep = (prim >= 0) & ok
+    if u is None:
+        return torch.where(keep, rt, t), prim, ru, rv
     return (torch.where(keep, rt, t), prim, torch.where(keep, ru, u),
             torch.where(keep, rv, v))
 
 
-def _intersect(scene: DeviceScene, o, d, alive, config: RenderConfig):
-    """Closest hit, then the differentiable refine: (t, prim, u, v)."""
-    return _refine(scene, o, d, *_trace(scene, o, d, alive, config))
+def _intersect(scene: DeviceScene, o, d, alive, config: RenderConfig,
+               pay_tiles=None, sort_key="dir"):
+    """Closest hit, then the differentiable refine: (t, prim, u, v,
+    payload)."""
+    *hit, payload = _trace(scene, o, d, alive, config, pay_tiles, sort_key)
+    return (*_refine(scene, o, d, *hit, payload=payload,
+                     reattach=not config.scene_sharded), payload)
 
 
 def _shade_stage(scene, view, config, paths, acc, cam_seed, li, hit, payload):
     """refine + shade: the part of a bounce that remat recomputes."""
     t, prim, u, v = _refine(scene, paths["origin"], paths["dir"], *hit,
-                            payload=payload)
+                            payload=payload,
+                            reattach=not config.scene_sharded)
     return shade_bounce(scene, view, config, paths, acc, cam_seed, li,
                         t, prim, u, v, payload=payload)
 
 
 def bounce_step(scene, view, config: RenderConfig, paths, acc, cam_seed, li,
-                intersect_fn=None, occluded_fn=None):
+                intersect_fn=None, occluded_fn=None, pay_tiles=None,
+                sort_key="dir"):
     """One full bounce: trace, refine + shade (checkpointed with
     config.remat), occlude, apply. Returns (paths, acc, cam_seed,
     n_shadow_connections).
@@ -305,10 +371,11 @@ def bounce_step(scene, view, config: RenderConfig, paths, acc, cam_seed, li,
     intersect_fn(o, d, alive) -> (t, prim, u, v, payload) replaces the
     trace: the traversal's winner and its payload rows [PAY_ROWS, N] (or
     None); occluded_fn(o, d, tmax) -> bool [N] replaces the shadow trace.
-    The payload goes through the checkpoint with the hit."""
+    The payload goes through the checkpoint with the hit. pay_tiles and
+    sort_key go to the cluster path's trace (_trace)."""
     if intersect_fn is None:
-        hit, payload = _trace(scene, paths["origin"], paths["dir"],
-                              paths["alive"], config), None
+        *hit, payload = _trace(scene, paths["origin"], paths["dir"],
+                               paths["alive"], config, pay_tiles, sort_key)
     else:
         *hit, payload = intersect_fn(paths["origin"], paths["dir"],
                                      paths["alive"])
@@ -347,8 +414,9 @@ def _add_contrib(config, acc, paths, contrib, mask, to_direct):
 
 def make_shading(scene: DeviceScene, d, t, prim, u, v, spread_angle,
                  config: RenderConfig, payload=None):
-    """GetShadingData from the payload rows when there are some (scene
-    sharding: config.scene_sharded), else by the gathers."""
+    """GetShadingData from the payload rows when there are some (the
+    cluster path, re-attached; scene sharding, config.scene_sharded, as
+    they are), else by the gathers."""
     if payload is not None:
         return shading_from_payload(
             scene, d, t, prim, payload, u, v, spread_angle,
@@ -363,8 +431,8 @@ def shade_bounce(scene, view, config: RenderConfig, paths, acc, cam_seed, li,
     """The shade stage for one bounce (pathtracer.h:54-240 without the trace
     launches). `li` is the path depth (0 = primary): an int in the classic
     executor, a per-lane tensor in the regen one. `payload` holds the hit
-    triangles' rows (scene sharding). Returns (paths', acc', cam_seed',
-    shadow)."""
+    triangles' rows (the cluster path, scene sharding). Returns (paths',
+    acc', cam_seed', shadow)."""
     bsdf_mod = bsdf_disney if config.bsdf == "disney" else bsdf_lambert
     geo_eps = config.geometry_epsilon
     path_length = li + 1                       # reference is 1-based
@@ -598,6 +666,7 @@ def trace_paths(scene, view, config: RenderConfig, sample_base: int,
                      g_depth=torch.zeros(n, dtype=torch.float32, device=dev),
                      g_wpos=f3(1e30))
     ext, conn = [], []
+    pay_tiles = None if intersect_fn else prepare_cluster_pay(scene, config)
     for li in range(config.max_path_length):
         n_alive = paths["alive"].sum()
         ext.append(n_alive)
@@ -605,9 +674,13 @@ def trace_paths(scene, view, config: RenderConfig, sample_base: int,
             cam_seed, _ = rng_mod.frame_r0(cam_seed, li + 1)
             conn.append(torch.zeros_like(n_alive))
             continue
+        # tiled primaries are coherent already: the cluster path sorts only
+        # the bounces
         paths, acc, cam_seed, n_conn = bounce_step(
             scene, view, config, paths, acc, cam_seed, li,
-            intersect_fn=intersect_fn, occluded_fn=occluded_fn)
+            intersect_fn=intersect_fn, occluded_fn=occluded_fn,
+            pay_tiles=pay_tiles,
+            sort_key=None if li == 0 and config.tiled() else "dir")
         conn.append(n_conn)
     stats = _pass_stats(ext, conn, primary_rays=torch.tensor(
         n, dtype=torch.int32))
@@ -652,6 +725,7 @@ def trace_paths_regen(scene, view, config: RenderConfig, state: AccumState):
     count = torch.zeros(n, dtype=torch.float32, device=dev)
     cam_seed = state.cam_seed
     ext, conn = [], []
+    pay_tiles = prepare_cluster_pay(scene, config)
     for _ in range(config.max_path_length):
         # regenerate: a dead lane completed its previous sample (credited at
         # death, below) and starts its NEXT sample of the same pixel. The
@@ -666,7 +740,8 @@ def trace_paths_regen(scene, view, config: RenderConfig, state: AccumState):
         ext.append(paths["alive"].sum())
 
         paths, acc, cam_seed, n_conn = bounce_step(
-            scene, view, config, paths, acc, cam_seed, depth)
+            scene, view, config, paths, acc, cam_seed, depth,
+            pay_tiles=pay_tiles)
         depth = depth + paths["alive"].to(torch.int64)
         # credit the completed sample at DEATH: its energy entered acc in
         # this bounce, so energy and count land in the same pass
@@ -696,7 +771,8 @@ def _check_config(config: RenderConfig):
     unsupported = dict(
         bsdf=config.bsdf not in ("lambert", "disney"),
         scene_sharded=config.scene_sharded,
-        intersector=config.intersector not in ("auto", "lockstep", "brute"))
+        intersector=config.intersector not in ("auto", "lockstep", "brute",
+                                               "cluster"))
     bad = [k for k, v in unsupported.items() if v]
     if bad:
         raise ValueError(f"render_pass does not support these RenderConfig "

@@ -147,6 +147,7 @@ class DeviceScene:
     sky: DeviceSky
     textures: DeviceTextures
     bvh: "object"                 # DeviceBVH (bvh/traverse.py)
+    cbvh: "object" = None         # ClusterBVH (bvh/clusters.py) or None
 
     @property
     def device(self) -> torch.device:

@@ -16,14 +16,18 @@ Deliberate differences:
   - `native` is an argument, and a native build that fails raises (the
     JAX package falls back to numpy silently and reads LH2_NO_NATIVE);
     the BLAS cache keys each entry by the builder too;
-  - the TPU cluster tiles (cut_clusters) are not built;
+  - the cluster tiles (bvh/clusters.py cut_clusters) are cut from the same
+    composed tree and triangle attributes as JAX's, but only when sync is
+    asked for them (clusters=True; the JAX sync always cuts them), since
+    only intersector="cluster" reads them; the cut takes cut_clusters'
+    default min_tpc (JAX reads LH2_MIN_TPC);
   - a skinned or morphed mesh keeps its texture coordinates (the JAX
     package's _apply_skin / _apply_morph rebuild the posed mesh without
     them, so its posed meshes sample every texture at uv (0, 0));
   - load_sky takes only its `cache` argument (the JAX package also reads
     LH2_NO_TEXCACHE);
   - `sync_seconds` holds the host seconds of the last sync by step (pose,
-    blas, compose, tables, textures, pack, upload), beside the JAX
+    blas, compose, tables, textures, pack, cut, upload), beside the JAX
     package's `build_stats` counters.
 """
 from __future__ import annotations
@@ -35,6 +39,7 @@ import numpy as np
 import torch
 
 from lighthouse2_tpu_torch.bvh.builder import build_sah_bvh
+from lighthouse2_tpu_torch.bvh.clusters import cut_clusters
 from lighthouse2_tpu_torch.bvh.tlas import compose_two_level
 from lighthouse2_tpu_torch.bvh.traverse import pack_flat, upload_bvh
 from lighthouse2_tpu_torch.device import resolve_device
@@ -52,7 +57,7 @@ from lighthouse2_tpu_torch.scene.host_texture import build_texture_pool
 from lighthouse2_tpu_torch.utils import image as im
 
 SYNC_STEPS = ("pose", "blas", "compose", "tables", "textures", "pack",
-              "upload")
+              "cut", "upload")
 
 
 class HostNode:
@@ -421,13 +426,15 @@ class HostScene:
                     bvh=flat, world=world)
 
     def sync(self, device=None, rebuild_bvh=True, two_level=True,
-             native=True) -> DeviceScene:
+             native=True, clusters=False) -> DeviceScene:
         """Upload the scene to `device` (default: the card; see
         device.resolve_device). The BVH is the two-level tree over native
         BLASes unless two_level / native say otherwise, and none without
-        rebuild_bvh. Cached until the scene changes."""
+        rebuild_bvh; with `clusters` the cluster tiles of intersector=
+        "cluster" (DeviceScene.cbvh) are cut from the same tree. Cached
+        until the scene changes."""
         dev = resolve_device(device)
-        key = (dev, rebuild_bvh, two_level, native)
+        key = (dev, rebuild_bvh, two_level, native, clusters)
         if not self.dirty and self._cached is not None \
                 and self._cached_key == key:
             return self._cached
@@ -441,18 +448,28 @@ class HostScene:
         packed = (pack_flat(a["bvh"], w["v0"], w["v1"], w["v2"])
                   if rebuild_bvh else None)
         t2 = time.perf_counter()
+        cbvh = None
+        if rebuild_bvh and clusters:
+            tr = a["tris"]
+            cbvh = cut_clusters(
+                a["bvh"], dict(w, ltri=tr["ltri"], lod=tr["lod"],
+                               tangent=tr["tangent"],
+                               bitangent=tr["bitangent"]), device=dev)
+        t3 = time.perf_counter()
         scene = DeviceScene(
             tris=to_device(DeviceTriangles, a["tris"], dev),
             materials=to_device(DeviceMaterials, a["materials"], dev),
             lights=to_device(DeviceLights, a["lights"], dev),
             sky=to_device(DeviceSky, a["sky"], dev),
             textures=textures,
-            bvh=upload_bvh(packed, dev) if rebuild_bvh else None)
+            bvh=upload_bvh(packed, dev) if rebuild_bvh else None,
+            cbvh=cbvh)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         secs["textures"] += t1 - t0
         secs["pack"] += t2 - t1
-        secs["upload"] += time.perf_counter() - t2
+        secs["cut"] += t3 - t2
+        secs["upload"] += time.perf_counter() - t3
         self._cached = scene
         self._cached_key = key
         self.dirty = False

@@ -41,8 +41,9 @@ what it saw. The items:
      gradient scaled by the shard count, or one without another shard's
      share, fails. The 2x2 step with remat (refine + shade recomputed from
      the payload carried through the checkpoint) equals it exactly;
-  5. ValueError for path_regen=True, for n_paths % rays != 0 and for
-     shading_from_payload(geom_reattach=True); render_pass still rejects
+  5. ValueError for path_regen=True, for n_paths % rays != 0 and for a
+     stripped scene handed to shard_scene without its shard (the global
+     triangles it would cut are gone); render_pass still rejects
      scene_sharded=True.
 """
 import argparse
@@ -63,8 +64,8 @@ from lighthouse2_tpu_torch.diff.params import (
 from lighthouse2_tpu_torch.parallel.distributed import init_distributed
 from lighthouse2_tpu_torch.parallel.mesh import make_mesh2d
 from lighthouse2_tpu_torch.parallel.scene_shard import (
-    _local_payload, build_shard_bvh, build_shard_bvhs,
-    render_pass_scene_sharded,
+    _local_payload, _strip_scene, build_shard_bvh, build_shard_bvhs,
+    render_pass_scene_sharded, shard_scene,
     shard_triangle_arrays, train_step_scene_sharded)
 from lighthouse2_tpu_torch.render import shading as tsh
 from lighthouse2_tpu_torch.render.kernels.trace import trace_closest
@@ -445,13 +446,8 @@ def test_errors(ranks, single):
     for r in ranks:
         assert r["regen_raises"] and r["indivisible_raises"]
     ds, view = single["ds"], single["view"]
-    n = SIZE * SIZE
-    z = torch.zeros(n)
-    with pytest.raises(ValueError, match="geom_reattach"):
-        tsh.shading_from_payload(ds, torch.ones((n, 3)), z,
-                                 torch.zeros(n, dtype=torch.int32),
-                                 torch.zeros((tsh.PAY_ROWS, n)), z, z, 0.0,
-                                 geom_reattach=True)
+    with pytest.raises(ValueError, match="stripped scene"):
+        shard_scene(_strip_scene(ds), make_mesh2d(1, 1, device="cpu"))
     cfg = _config(scene_sharded=True)
     with pytest.raises(ValueError, match="scene_sharded"):
         render_pass(ds, view, AccumState.make(cfg, "cpu"), cfg)

@@ -10,8 +10,8 @@
     shapes (primary_rays = samples_completed, int32), and the completed
     samples total the per-pixel counts;
   - render_pass rejects what the port does not implement (filter_enabled
-    with path_regen, as JAX asserts; intersector="cluster";
-    scene_sharded).
+    with path_regen, as JAX asserts; scene_sharded, which is
+    parallel/scene_shard.py's pass).
 Per-pixel accumulators are compared as the fraction of pixels within
 rtol 1e-3 / atol 1e-4, required >= 99%: XLA and torch round transcendentals
 differently, and one flipped Russian-roulette or BSDF decision legitimately
@@ -128,7 +128,6 @@ def test_regen_slice_matches_jax_lockstep(cornell):
 def test_render_pass_rejects_unported_options(cornell):
     _, _, tds, tview = cornell
     for kw in (dict(path_regen=True, filter_enabled=True),
-               dict(path_regen=False, intersector="cluster"),
                dict(path_regen=True, scene_sharded=True)):
         cfg = RenderConfig(width=32, height=32, max_path_length=2, **kw)
         with pytest.raises(ValueError, match="does not support"):
