@@ -177,14 +177,27 @@ Phases; any failure exits non-zero before the result line is printed:
      (a) both kernels on [kernels]' three batches, each in the executor's
      order (primaries as they come, bounce-1 rays sorted by ray_sort_perm
      "dir", shadow rays by "origin_octant"), against their plain versions
-     on every lane of every block (code, t, per-block visit and sub-packet
-     counters, occlusion equal; the plain walk takes 2-13 s a batch on the
-     card, under the 60 s at which a subset of blocks would be compared)
-     and against the BVH4 kernels (prim and occlusion on >= AGREE_MIN of
-     the lanes); CUDA-event ms over KERNEL_ITERS launches, the plain
-     version's wall ms, and the bound of the same work as the BVH4 rows
-     (the BVH2 walk's counted operations, the BVH2 arrays and rays read
-     once, the kernel's outputs written once). (b) the bathroom 512x512,
+     on every lane of every block (the kernels' forms are 3xTF32 tensor-
+     core products, the plain versions' FP32 terms: code and occlusion
+     equal on >= AGREE_MIN of the lanes, t's mean relative error on the
+     agreeing hits <= T_MEAN_REL_MAX, the per-block visit and sub-packet
+     counters equal on >= COUNTERS_MIN of the live blocks; the plain walk
+     takes 2-13 s a batch on the card) and against the BVH4 kernels (prim
+     and occlusion on >= AGREE_MIN of the lanes); CUDA-event ms over
+     KERNEL_ITERS launches, the plain version's wall ms, and the bound of
+     the same work as the BVH4 rows (the BVH2 walk's counted operations,
+     the BVH2 arrays and rays read once, the kernel's outputs written
+     once); both kernels must hold two CTAs (1024-ray blocks) an SM; from
+     one more launch with the kernels' statistics, the tile
+     bytes copied and the share of them copied for leaves with no marked
+     sub-packet, the marked (sub-packet, tile) pairs, the evaluated
+     (sub-packet, 16-ray row group, tile) units (their mean and largest
+     count a block, as the leaves': a launch lasts as long as its slowest
+     block), and the design's own floor: its evaluated (ray, triangle) pairs' FORM_TF32_OPS over the
+     TF32 peak and EPILOGUE_FP32_OPS over the FP32 peak, printed beside
+     the common bound. (a') the same gates on a tiles_per_cluster 2 cut of
+     the tree (cut_clusters(min_tpc=2)), the first TPC2_BLOCKS blocks of
+     each batch: the kernels' path for clusters of several tiles. (b) the bathroom 512x512,
      path 16, regen through render_pass: 1 warm-up and CLUSTER_PASSES
      timed passes, each launching each cluster kernel 16 times and the BVH4
      kernels never; Mrays/s, ms a pass, peak memory; the image against
@@ -221,9 +234,24 @@ from concurrent.futures import ThreadPoolExecutor
 KERNEL_ITERS = 20          # timed launches per kernel and batch
 PLAIN_ITERS = 3            # timed calls per plain version and batch
 AGREE_MIN = 0.9999         # fraction of lanes that must agree
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, FP32 outside tensor cores
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, FP32 outside tensor
+# cores, dense TF32 on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+TF32_OPS_PER_S = 495e12
+# [cluster] (a): the cluster kernels (3xTF32 forms) against their plain
+# versions (FP32 terms): t's mean relative error on the lanes whose hit
+# agrees (3xTF32 keeps ~21 of FP32's 24 bits a product), the share of live
+# blocks whose visit and sub-packet counters must be equal (a last-bit
+# difference in a best t can move a sub-packet mark)
+T_MEAN_REL_MAX = 1e-6
+COUNTERS_MIN = 0.999
+# the cluster kernels' work a (ray, triangle) pair: three TF32 products of
+# depth 4 for each of the six forms (2 operations a multiply-add), and the
+# FP32 epilogue (t = tn / dn counted as one, u and v two each, u + v, five
+# tests, the running minimum's compare)
+FORM_TF32_OPS = 3 * 6 * 4 * 2
+EPILOGUE_FP32_OPS = 12
 # floating-point operations of one BVH2 interior step (two child slab tests)
 # and of one Moller-Trumbore test, counted from the BVH2 walk: the bound
 # counts the BVH2 walk's work, whatever walks it, so shares compare across
@@ -261,6 +289,7 @@ FRAC_BAD_MAX = 5e-3        # __graft_entry__.py:118, pixels off
 MEAN_REL_MAX = 1e-4        # __graft_entry__.py:118, mean relative error
 TIE_SHARE = 1e-3           # stats totals: a t-tie may change a winner
 CLUSTER_PASSES = 3         # timed passes of [cluster] (b)
+TPC2_BLOCKS = 32           # 1024-ray blocks a batch of [cluster] (a')
 CLUSTER_SHARD_PATH = 4     # path length of [cluster] (e)'s scene-sharded pass
 LOSS_RTOL = 1e-4           # tests/test_torch_grad.py: the loss, relative
 # device-time shares of a fwd+bwd step: the cluster path's re-attach
@@ -2199,18 +2228,20 @@ def _cluster_batches(scene, view, cfg, dev):
 
 def cluster_kernels(scene, view, cfg, dev, kern, iters):
     """[cluster] (a): both cluster kernels against their plain versions
-    (every lane of the three batches: code, t, the per-block visit and
-    sub-packet counters and the occlusion equal) and against the BVH4
-    kernels (prim and occlusion on >= AGREE_MIN of the lanes); CUDA-event
-    ms over `iters` launches; the plain version's wall ms of the one
-    compared call; the bound of the same work as the BVH4 rows (the BVH2
-    walk's counted operations from `kern`, the BVH2 arrays and the rays
-    read once, this kernel's outputs written once). Returns {kernel:
-    {batch: numbers}}."""
+    on every lane of the three batches (code and occlusion on >= AGREE_MIN
+    of the lanes, t's mean relative error on the agreeing hits <=
+    T_MEAN_REL_MAX, the per-block visit and sub-packet counters on >=
+    COUNTERS_MIN of the live blocks) and against the BVH4 kernels (prim and
+    occlusion on >= AGREE_MIN of the lanes); CUDA-event ms over `iters`
+    launches; the plain version's wall ms of the one compared call; the
+    bound of the same work as the BVH4 rows (the BVH2 walk's counted
+    operations from `kern`, the BVH2 arrays and the rays read once, this
+    kernel's outputs written once); the kernels' copy statistics and the
+    design's floor from one more launch each. Returns {kernel: {batch:
+    numbers}}."""
     import torch
     from lighthouse2_tpu_torch.render.kernels.cluster import (
-        BLOCK, cluster_closest, cluster_closest_plain, cluster_occluded,
-        cluster_occluded_plain)
+        BLOCK, ROW, STATS, TILE_BYTES, cluster_closest, cluster_occluded)
     from lighthouse2_tpu_torch.render.kernels.trace import (
         trace_closest, trace_occluded)
 
@@ -2221,47 +2252,52 @@ def cluster_kernels(scene, view, cfg, dev, kern, iters):
     for name, (o, d, tmax, x, inv) in _cluster_batches(
             scene, view, cfg, dev).items():
         n = o.shape[0]
-        code, t, visits, subs = cluster_closest(x, cb)
-        occ = cluster_occluded(x, cb)
-        _sync(dev)
-        t0 = time.perf_counter()
-        pc = cluster_closest_plain(x, cb)
-        _sync(dev)
-        pc_ms = (time.perf_counter() - t0) * 1e3
-        t0 = time.perf_counter()
-        po = cluster_occluded_plain(x, cb)
-        _sync(dev)
-        po_ms = (time.perf_counter() - t0) * 1e3
+        nb = x.shape[1] // BLOCK
+        c, (code, t, visits, subs, occ), (pc_ms, po_ms) = _kernel_gates(
+            x, cb, name, dev)
         unperm = (lambda a: a[:n] if inv is None else a[:n][inv])
         prim = unperm(torch.where(code >= 0, cb.prim.reshape(-1)[
             code.clamp(min=0).to(torch.int64)], -1))
         eq = lambda a, b: (a == b).float().mean().item()
-        live_blocks = int((x[7].reshape(-1, BLOCK) > 0).any(-1).sum())
         c = dict(
-            rays=n, lanes=int(x.shape[1]), live_blocks=live_blocks,
-            hits=int((code >= 0).sum()), occluded=int(occ.sum()),
-            code_match=eq(code, pc[0]), t_match=eq(t, pc[1]),
-            visits_match=eq(visits, pc[2]), subs_match=eq(subs, pc[3]),
-            occ_match=eq(occ, po),
-            t_max_abs_err=(t - pc[1]).abs().max().item(),
+            c, rays=n,
             bvh4_prim_match=eq(prim, trace_closest(o, d, tmax, bvh)[1]),
             bvh4_occ_match=eq(unperm(occ), trace_occluded(o, d, tmax, bvh)),
             mean_visits_per_live_block=visits.sum().item() / max(
-                live_blocks, 1),
-            mean_subs_per_live_block=subs.sum().item() / max(live_blocks, 1))
+                c["live_blocks"], 1),
+            mean_subs_per_live_block=subs.sum().item() / max(
+                c["live_blocks"], 1))
         print(f"[cluster] {name}: " + json.dumps(c), flush=True)
-        exact = ("code_match", "t_match", "visits_match", "subs_match",
-                 "occ_match")
-        if any(c[k] != 1.0 for k in exact):
-            raise AssertionError(f"cluster kernels and plain versions differ "
-                                 f"on {name}: "
-                                 + str({k: c[k] for k in exact}))
         if c["bvh4_prim_match"] < AGREE_MIN or c["bvh4_occ_match"] < AGREE_MIN:
             raise AssertionError(f"cluster / BVH4 agreement below {AGREE_MIN} "
                                  f"on {name}: prim {c['bvh4_prim_match']}, "
                                  f"occ {c['bvh4_occ_match']}")
         ck = _time_ms(lambda: cluster_closest(x, cb), iters, dev)
         ok_ = _time_ms(lambda: cluster_occluded(x, cb), iters, dev)
+        copies = {}
+        for key, fn in (("cluster_closest", cluster_closest),
+                        ("cluster_occluded", cluster_occluded)):
+            st = torch.zeros((nb, len(STATS)), dtype=torch.int32, device=dev)
+            fn(x, cb, stats=st)
+            tot = dict(zip(STATS, st.sum(0).tolist()))
+            per = st[st[:, STATS.index("leaves")] > 0].float()
+            if per.shape[0] == 0:                 # no block walked a leaf
+                per = torch.zeros((1, len(STATS)))
+            spread = {k: dict(mean=per[:, i].mean().item(),
+                              max=per[:, i].max().item())
+                      for i, k in enumerate(STATS) if k in ("units", "leaves")}
+            pairs = tot["units"] * ROW * 128      # evaluated (ray, triangle)
+            floor_tf32 = pairs * FORM_TF32_OPS / TF32_OPS_PER_S * 1e3
+            floor_fp32 = pairs * EPILOGUE_FP32_OPS / FP32_OPS_PER_S * 1e3
+            copies[key] = dict(
+                tile_bytes=tot["tiles"] * TILE_BYTES,
+                unused_share=tot["tiles_unused"] / max(tot["tiles"], 1),
+                marked_pairs=tot["pairs"], units=tot["units"],
+                leaves=tot["leaves"],
+                ray_triangle_pairs=pairs, design_floor_ms=max(
+                    floor_tf32, floor_fp32),
+                design_floor_tf32_ms=floor_tf32,
+                design_floor_fp32_ms=floor_fp32, per_block=spread)
         ray_bytes = n * (12 + 12 + 4)
         cbd, cbb = _bound(ray_bytes + n * 8 + scene_bytes,
                           kern["trace_closest"][name]["ops"])
@@ -2270,18 +2306,108 @@ def cluster_kernels(scene, view, cfg, dev, kern, iters):
         out["cluster_closest"][name] = dict(
             ms=ck, plain_ms=pc_ms, bound_ms=cbd, bound_by=cbb,
             max_abs_err=c["t_max_abs_err"], grays_per_s=n / ck / 1e6,
-            bvh4_ms=kern["trace_closest"][name]["ms"])
+            bvh4_ms=kern["trace_closest"][name]["ms"],
+            copies=copies["cluster_closest"])
         out["cluster_occluded"][name] = dict(
             ms=ok_, plain_ms=po_ms, bound_ms=obd, bound_by=obb,
-            max_abs_err=float((occ != po).any()), grays_per_s=n / ok_ / 1e6,
-            bvh4_ms=kern["trace_occluded"][name]["ms"])
+            max_abs_err=c["occ_max_abs_err"], grays_per_s=n / ok_ / 1e6,
+            bvh4_ms=kern["trace_occluded"][name]["ms"],
+            copies=copies["cluster_occluded"])
         print(f"[cluster] {name}: closest {ck:.4f} ms (plain {pc_ms:.1f} ms, "
               f"BVH4 kernel {kern['trace_closest'][name]['ms']:.4f} ms, "
               f"bound {cbd:.4f} ms by {cbb}, {cbd / ck:.2%} of it); "
               f"occluded {ok_:.4f} ms (plain {po_ms:.1f} ms, BVH4 kernel "
               f"{kern['trace_occluded'][name]['ms']:.4f} ms, bound "
               f"{obd:.4f} ms by {obb}, {obd / ok_:.2%} of it)", flush=True)
+        for key, cp in copies.items():
+            ms = ck if key == "cluster_closest" else ok_
+            print(f"[cluster] {name}: {key} copied {cp['tile_bytes']} tile "
+                  f"bytes ({cp['unused_share']:.2%} for leaves with no marked "
+                  f"sub-packet) over {cp['leaves']} leaves; "
+                  f"{cp['marked_pairs']} marked (sub-packet, tile) pairs, "
+                  f"{cp['units']} evaluated (sub-packet, row group, tile) "
+                  f"units = {cp['ray_triangle_pairs']} (ray, triangle) pairs; "
+                  f"design floor {cp['design_floor_ms']:.4f} ms (TF32 "
+                  f"{cp['design_floor_tf32_ms']:.4f}, FP32 "
+                  f"{cp['design_floor_fp32_ms']:.4f}), "
+                  f"{cp['design_floor_ms'] / ms:.2%} of the kernel's ms, "
+                  f"beside the common bound "
+                  f"{(cbd if key == 'cluster_closest' else obd):.4f} ms; a "
+                  f"block's units mean {cp['per_block']['units']['mean']:.1f} "
+                  f"max {cp['per_block']['units']['max']:.0f}, leaves mean "
+                  f"{cp['per_block']['leaves']['mean']:.1f} max "
+                  f"{cp['per_block']['leaves']['max']:.0f}", flush=True)
     return out
+
+
+def _kernel_gates(x, cb, name, dev):
+    """Both cluster kernels against their plain versions on the ray tile x,
+    every lane: code and occlusion on >= AGREE_MIN of the lanes, t's mean
+    relative error on the agreeing hits <= T_MEAN_REL_MAX, the per-block
+    visit and sub-packet counters on >= COUNTERS_MIN of the live blocks.
+    Returns (the agreement numbers, the kernels' outputs (code, t, visits,
+    subs, occ), the plain versions' wall ms (closest, any-hit))."""
+    import torch
+    from lighthouse2_tpu_torch.render.kernels.cluster import (
+        BLOCK, cluster_closest, cluster_closest_plain, cluster_occluded,
+        cluster_occluded_plain)
+    code, t, visits, subs = cluster_closest(x, cb)
+    occ = cluster_occluded(x, cb)
+    _sync(dev)
+    t0 = time.perf_counter()
+    pc = cluster_closest_plain(x, cb)
+    _sync(dev)
+    pc_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    po = cluster_occluded_plain(x, cb)
+    _sync(dev)
+    po_ms = (time.perf_counter() - t0) * 1e3
+    live = (x[7].reshape(-1, BLOCK) > 0).any(-1)
+    same = code == pc[0]
+    rel = ((t - pc[1]).abs() / pc[1].abs())[same & (code >= 0)]
+    eq = lambda a, b: (a == b).float().mean().item()
+    c = dict(
+        lanes=int(x.shape[1]), live_blocks=int(live.sum()),
+        hits=int((code >= 0).sum()), occluded=int(occ.sum()),
+        code_match=same.float().mean().item(), occ_match=eq(occ, po),
+        t_mean_rel_err=rel.mean().item() if rel.numel() else 0.0,
+        t_max_rel_err=rel.max().item() if rel.numel() else 0.0,
+        t_max_abs_err=(t - pc[1])[same].abs().max().item(),
+        visits_match=eq(visits[live], pc[2][live]),
+        subs_match=eq(subs[live], pc[3][live]),
+        occ_max_abs_err=float((occ != po).any()))
+    gates = dict(code=c["code_match"] >= AGREE_MIN,
+                 occ=c["occ_match"] >= AGREE_MIN,
+                 t=c["t_mean_rel_err"] <= T_MEAN_REL_MAX,
+                 visits=c["visits_match"] >= COUNTERS_MIN,
+                 subs=c["subs_match"] >= COUNTERS_MIN)
+    if not all(gates.values()):
+        raise AssertionError(f"cluster kernels and plain versions differ on "
+                             f"{name}: {gates}, {c}")
+    return c, (code, t, visits, subs, occ), (pc_ms, po_ms)
+
+
+def cluster_tpc2(host, scene, view, cfg, dev, blocks=TPC2_BLOCKS):
+    """[cluster] (a'): the kernels' path for clusters of several tiles,
+    which the bathroom's cut (one tile a cluster) never takes: the same
+    tree cut with tiles_per_cluster 2 (cut_clusters(min_tpc=2)), both
+    kernels against their plain versions on the first `blocks` blocks of
+    [cluster] (a)'s three batches, with (a)'s gates."""
+    from lighthouse2_tpu_torch.bvh.clusters import cut_clusters
+    from lighthouse2_tpu_torch.render.kernels.cluster import BLOCK
+    a = host.world_arrays(True, True, True)
+    w, tr = a["world"], a["tris"]
+    cb = cut_clusters(a["bvh"], dict(w, ltri=tr["ltri"], lod=tr["lod"],
+                                     tangent=tr["tangent"],
+                                     bitangent=tr["bitangent"]),
+                      min_tpc=2, device=dev)
+    sc = dataclasses.replace(scene, cbvh=cb)
+    res = dict(tiles_per_cluster=cb.tiles_per_cluster)
+    for name, (_, _, _, x, _) in _cluster_batches(sc, view, cfg, dev).items():
+        res[name] = _kernel_gates(x[:, :blocks * BLOCK].contiguous(), cb,
+                                  name, dev)[0]
+    print("[cluster] tiles_per_cluster 2: " + json.dumps(res), flush=True)
+    return res
 
 
 def _launch_deltas(before, after):
@@ -2487,7 +2613,7 @@ def cluster_bdpt_shard(scene, view, cfg, dev):
     return res
 
 
-def cluster_path(scene, view, cfg, dev, kern, train_prof):
+def cluster_path(host, scene, view, cfg, dev, kern, train_prof):
     """Phase 19, [cluster]: intersector="cluster" (a)-(e). Returns the
     numbers, with the seconds each part took."""
     cb = scene.cbvh
@@ -2495,10 +2621,21 @@ def cluster_path(scene, view, cfg, dev, kern, train_prof):
           f"clusters x {cb.tiles_per_cluster} tile(s), depth "
           f"{cb.max_depth}; bmat {_tensor_bytes(cb.bmat)} B, pgeo "
           f"{_tensor_bytes(cb.pgeo)} B", flush=True)
-    res, secs = {}, {}
+    import torch
+    from lighthouse2_tpu_torch.render.kernels.cluster import ctas_per_sm
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    occ = dict(closest=ctas_per_sm(False), occluded=ctas_per_sm(True), sms=sms)
+    print(f"[cluster] CTAs (1024-ray blocks) resident an SM: closest "
+          f"{occ['closest']}, occluded {occ['occluded']}, on {sms} SMs: "
+          f"{occ['closest'] * sms} blocks a wave", flush=True)
+    if min(occ["closest"], occ["occluded"]) < 2:
+        raise AssertionError(f"the cluster kernels must hold two blocks an "
+                             f"SM: {occ}")
+    res, secs = {"ctas_per_sm": occ}, {}
     for key, fn in (
             ("kernels", lambda: cluster_kernels(scene, view, cfg, dev, kern,
                                                 KERNEL_ITERS)),
+            ("tpc2", lambda: cluster_tpc2(host, scene, view, cfg, dev)),
             ("main", lambda: cluster_main(scene, view, cfg, dev,
                                           CLUSTER_PASSES)),
             ("train", lambda: cluster_train(scene, view, cfg, dev,
@@ -2681,7 +2818,7 @@ def main() -> int:
     scene = host.sync(dev, clusters=True)
     print("[cluster] sync with the cluster tiles, host seconds: "
           + json.dumps(host.sync_seconds), flush=True)
-    clus = cluster_path(scene, view, cfg, dev, kern, train_prof)
+    clus = cluster_path(host, scene, view, cfg, dev, kern, train_prof)
     cm, ct = clus["main"], clus["train"]
     print(f"[cluster] {cm['mrays_per_s']:.3f} Mrays/s, "
           f"{cm['ms_per_pass']:.1f} ms a pass, peak "
@@ -2758,6 +2895,9 @@ def main() -> int:
                                clus["kernels"][name].items()},
             bound_ms_by_batch={bt: v["bound_ms"] for bt, v in
                                clus["kernels"][name].items()},
+            copies_by_batch={bt: v["copies"] for bt, v in
+                             clus["kernels"][name].items()},
+            ctas_per_sm=clus["ctas_per_sm"],
             max_abs_err=k["max_abs_err"], ms=k["ms"], plain_ms=k["plain_ms"],
             bound_ms=k["bound_ms"], bound_by=k["bound_by"], library_ms=None))
     print(json.dumps({"kernels": rows}))

@@ -5,15 +5,18 @@ the Pallas kernels _make_closest_kernel and _make_anyhit_kernel (launched by
 _trace_chunk), _block_frustum, bake_material_rows, ray_sort_perm,
 prepare_pay_tiles and trace_cluster_bvh. Both CUDA kernels take the Pallas
 kernels' own inputs (the top tree's boxes and meta, the bmat tiles and the
-[8, Nc] ray tile) and compute their outputs; the CUDA source explains the
-design and the walk schedule.
+[8, Nc] ray tile), run the Pallas kernels' walk schedule (RING, BM_PERIOD)
+and compute their outputs; the CUDA source explains the design.
 
 Their plain PyTorch versions, cluster_closest_plain and
 cluster_occluded_plain, walk all blocks of a launch in lockstep (one top-tree
-step of every block per iteration, vectorised over blocks) with the kernels'
-schedule and their arithmetic, operation for operation, so kernel and plain
-version agree on every lane, counters included. They are the wrappers' CPU
-branch and the kernels' reference on the card.
+step of every block per iteration, vectorised over blocks) with that
+schedule: the closest walk fills a per-block ring of RING leaves, takes two
+leaves a step with both sub-packet masks from the best t at the step's
+start, and refreshes the walk bound when tail % BM_PERIOD < 2; the any-hit
+walk fetches a leaf ahead and refreshes after every BM_PERIOD-th leaf. So
+their per-block visit and sub-packet counters are the Pallas kernel's. They
+are the wrappers' CPU branch and the kernels' reference on the card.
 
 The library is built with nvcc at first use (render/kernels/trace.py
 build_library: sm_90a, -fmad=false, into build/lighthouse2_tpu_torch/) and
@@ -35,9 +38,23 @@ Differences from the JAX package:
     reads the f32 PAY_PRIM row of the payload (which the payload keeps);
   - tmax is clamped to 1e30 (BIG), as the BVH4 kernels clamp theirs, so a
     larger tmax cannot admit a miss as a hit;
-  - the walk schedule and so the visit / sub-packet counters differ from
-    the Pallas kernel's (csrc/cluster_trace.cu); the interpret-mode Pallas
+  - the six linear forms: the kernels compute them on tensor cores in
+    3xTF32 (mma.sync) and decide the pairs near a test's boundary, and a
+    tile's winner, with the plain versions' FP32 terms; the plain versions
+    compute them term by term in FP32; JAX's kernels as one MXU product at
+    Precision.HIGHEST. JAX and the port agree to the last bits of t, so a
+    hit at an exact t-tie, and through the best t a borderline sub-packet
+    mark and so a block's counters, may differ; the interpret-mode Pallas
     kernels are the reference of the hits;
+  - a marked sub-packet's tile is evaluated for its 16-ray row groups that
+    hold a candidate lane (a ray passing the leaf's slab test), where the
+    Pallas kernel evaluates all 128 rays: a ray of another row group can
+    only miss a hit whose point lies on its leaf's box within rounding.
+    The counters still count marked sub-packets;
+  - the top tree's walk stack holds at most MAX_STACK = 128 entries (a
+    tree of depth <= 62; the bathroom's is 13), checked by the wrappers;
+  - RING is a constant here, where JAX reads LH2_RING from the
+    environment (default 4);
   - ray_sort_perm sorts int64 keys with a stable torch.argsort (JAX: uint32
     keys, jnp.argsort, also stable).
 """
@@ -60,10 +77,20 @@ SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
 BLOCK = 1024           # rays per block (one top-tree walk per block)
 SUB = 128              # sub-packet lanes
 NSUB = BLOCK // SUB
+ROW = 16               # rays of a row group (the kernels' mma row tile)
+ROW_GROUPS = SUB // ROW
 MT_EPS = 1e-6          # t epsilon (bvh/traverse.py parity)
 BIG = 1e30
-MAX_STACK = 1024       # csrc/cluster_trace.cu MAX_STACK
+MAX_STACK = 128        # csrc/cluster_trace.cu MAX_STACK
+RING = 4               # leaf ring of the closest walk (csrc RING)
+BM_PERIOD = 8          # leaves between walk-bound refreshes (csrc BM_PERIOD)
 PAIR_CHUNK = 256       # (block, sub-packet) pairs a plain evaluation step
+# per-block statistics of the kernels (stats=, csrc ST_*): tiles copied,
+# those of leaves with no marked sub-packet, marked (sub-packet, tile)
+# pairs, leaves processed, evaluated (sub-packet, row group, tile) units of
+# ROW rays x 128 triangles
+STATS = ("tiles", "tiles_unused", "pairs", "leaves", "units")
+TILE_BYTES = 7 * 768 * 4   # bytes a tile copy moves (rows 0..6 of bmat)
 
 # per-block counters in the payload's pad rows (JAX PAY_STAT_*)
 PAY_STAT_VISITS = 38
@@ -82,12 +109,24 @@ def _load():
     if _lib is None:
         lib = ctypes.CDLL(build_library(SOURCE)[0])
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.lh2_cluster_closest.argtypes = [p] * 4 + [i] * 3 + [p] * 5
+        lib.lh2_cluster_closest.argtypes = [p] * 4 + [i] * 3 + [p] * 6
         lib.lh2_cluster_closest.restype = i
-        lib.lh2_cluster_occluded.argtypes = [p] * 4 + [i] * 3 + [p] * 2
+        lib.lh2_cluster_occluded.argtypes = [p] * 4 + [i] * 3 + [p] * 3
         lib.lh2_cluster_occluded.restype = i
+        lib.lh2_cluster_ctas_per_sm.argtypes = [i]
+        lib.lh2_cluster_ctas_per_sm.restype = i
         _lib = lib
     return _lib
+
+
+def ctas_per_sm(anyhit: bool = False) -> int:
+    """CTAs of the closest-hit (or any-hit) kernel that one SM of the
+    current card holds at the kernels' launch configuration (each CTA
+    traces one 1024-ray block)."""
+    n = _load().lh2_cluster_ctas_per_sm(int(anyhit))
+    if n < 0:
+        raise RuntimeError(f"occupancy query failed (CUDA error {-n})")
+    return n
 
 
 def stack_cap(bvh: ClusterBVH) -> int:
@@ -238,12 +277,74 @@ def _live_blocks(x):
     return nb, fr, (fr[FR_LIVE] > 0).nonzero()[:, 0]
 
 
+class _Rays:
+    """The live blocks' rays of a launch, per block and sub-packet."""
+
+    def __init__(self, x, sel):
+        xb = x.reshape(8, -1, BLOCK)[:, sel]
+        nbl = sel.numel()
+        self.o, self.d, self.tmax = xb[0:3], xb[3:6], xb[7]
+        self.inv = _inv(self.d)
+        self.o4 = self.o.reshape(3, nbl, NSUB, SUB)
+        self.d4 = self.d.reshape(3, nbl, NSUB, SUB)
+
+    def groups(self, boxes, nd, a, limit):
+        """Candidate row groups [len(a), NSUB, ROW_GROUPS] of leaves nd for
+        blocks a: a 16-ray row group of a sub-packet with a lane whose ray
+        passes the leaf's slab test before `limit`. A sub-packet is marked
+        where one of its row groups is."""
+        return _lane_slab(boxes[:, nd], self.o[:, a], self.inv[:, a],
+                          limit).view(-1, NSUB, ROW_GROUPS, ROW).any(-1)
+
+
+def _group_limit(groups, ai, si, limit):
+    """`limit` [P, 128] of the pairs (ai, si) where the ray's row group is
+    a candidate, else 0 (no hit can pass t < 0)."""
+    lane_ok = groups[ai, si].repeat_interleave(ROW, dim=-1)
+    return torch.where(lane_ok, limit, 0.0)
+
+
+def _closest_leaf(r, bvh: ClusterBVH, a, nd, groups, best4, code4, lanes):
+    """The tiles of leaves nd (one a block of a) on the candidate row groups
+    of the marked sub-packets: the closest hit of each ray, taken where
+    strictly closer than its best t (tie: lowest lane of the tile)."""
+    tpc = bvh.tiles_per_cluster
+    t0 = bvh.meta[1].to(torch.int64)[nd].clamp(min=0) * tpc
+    ai, si = _pairs(groups.any(-1))
+    pb = a[ai]
+    for j in range(tpc):
+        for lo in range(0, pb.numel(), PAIR_CHUNK):
+            cb, cs = pb[lo:lo + PAIR_CHUNK], si[lo:lo + PAIR_CHUNK]
+            tile = t0[ai[lo:lo + PAIR_CHUNK]] + j
+            bs = best4[cb, cs]
+            tt, ok = _tile_forms(bvh.bmat[tile], r.o4[:, cb, cs],
+                                 r.d4[:, cb, cs], _group_limit(
+                                     groups, ai[lo:lo + PAIR_CHUNK],
+                                     si[lo:lo + PAIR_CHUNK], bs))
+            tm = torch.where(ok, tt, BIG)
+            tb = tm.amin(1)
+            win = torch.where(tm <= tb[:, None], lanes,
+                              CLUSTER_LANES).amin(1)
+            upd = tb < bs
+            best4[cb, cs] = torch.where(upd, tb, bs)
+            code4[cb, cs] = torch.where(
+                upd, tile[:, None] * CLUSTER_LANES + win, code4[cb, cs])
+
+
 def cluster_closest_plain(x, bvh: ClusterBVH):
     """Plain version of the closest-hit kernel. x [8, Nc] f32 (o, d, 1,
     tmax), Nc a multiple of 1024. Returns (code int32 [Nc] (tile * 128 +
     lane, -1 on a miss), t f32 [Nc] (the best t; tmax where nothing was
     hit, 0 in blocks without a live lane), visits int32 [n_blocks], subs
-    int32 [n_blocks])."""
+    int32 [n_blocks]).
+
+    The Pallas schedule, lockstep over blocks: a step fills each block's
+    ring up to RING leaves with its walk bound, takes its two oldest
+    leaves, marks both leaves' sub-packets (their candidate row groups)
+    against the best t at the step's start, processes the first then the
+    second, and refreshes the bound (the largest best t of a live lane)
+    when tail % BM_PERIOD < 2. visits = tail * tpc; subs counts the marked
+    (sub-packet, tile) pairs."""
     nb, fr, sel = _live_blocks(x)
     dev = x.device
     code = torch.full((nb, BLOCK), -1, dtype=torch.int32, device=dev)
@@ -253,102 +354,105 @@ def cluster_closest_plain(x, bvh: ClusterBVH):
     if sel.numel() == 0:
         return code.reshape(-1), t_out.reshape(-1), visits, subs
     nbl = sel.numel()
-    xb = x.reshape(8, nb, BLOCK)[:, sel]
-    o, d, tmax = xb[0:3], xb[3:6], xb[7]
-    inv = _inv(d)
-    live = tmax > 0.0
-    best = tmax.clone()
+    r = _Rays(x, sel)
+    live = r.tmax > 0.0
+    best = r.tmax.clone()
     bcode = torch.full((nbl, BLOCK), -1, dtype=torch.int64, device=dev)
     walk = _TopWalk(bvh.boxes, bvh.meta, fr[:, sel], stack_cap(bvh))
-    meta1 = bvh.meta[1].to(torch.int64)
     tpc = bvh.tiles_per_cluster
     bm = fr[FR_TLIM, sel].clone()
-    active = torch.ones(nbl, dtype=torch.bool, device=dev)
-    vis = torch.zeros(nbl, dtype=torch.int64, device=dev)
-    sb = torch.zeros(nbl, dtype=torch.int64, device=dev)
+    i64 = dict(dtype=torch.int64, device=dev)
+    ring = torch.zeros((nbl, RING), **i64)
+    head, tail = torch.zeros(nbl, **i64), torch.zeros(nbl, **i64)
+    wd = torch.zeros(nbl, dtype=torch.bool, device=dev)
+    sb = torch.zeros(nbl, **i64)
+    rows = torch.arange(nbl, device=dev)
     lanes = torch.arange(CLUSTER_LANES, device=dev)[None, :, None]
-    o4, d4 = o.reshape(3, nbl, NSUB, SUB), d.reshape(3, nbl, NSUB, SUB)
     best4 = best.view(nbl, NSUB, SUB)
     code4 = bcode.view(nbl, NSUB, SUB)
     while True:
-        leaf = walk.next_leaf(bm, active)
-        active = active & (leaf >= 0)
-        a = active.nonzero()[:, 0]
+        need = ~wd & (head - tail < RING)
+        while bool(need.any()):
+            leaf = walk.next_leaf(bm, need)
+            got = need & (leaf >= 0)
+            ring[rows[got], head[got] % RING] = leaf[got]
+            head = head + got.to(torch.int64)
+            wd = wd | (need & (leaf < 0))
+            need = ~wd & (head - tail < RING)
+        n_avail = head - tail
+        a = (n_avail > 0).nonzero()[:, 0]
         if a.numel() == 0:
             break
-        nd = leaf[a]
-        bits = _lane_slab(bvh.boxes[:, nd], o[:, a], inv[:, a],
-                          best[a]).view(-1, NSUB, SUB).any(-1)
-        t0 = meta1[nd].clamp(min=0) * tpc
-        ai, si = _pairs(bits)
-        pb = a[ai]
-        for j in range(tpc):
-            for lo in range(0, pb.numel(), PAIR_CHUNK):
-                cb, cs = pb[lo:lo + PAIR_CHUNK], si[lo:lo + PAIR_CHUNK]
-                tile = t0[ai[lo:lo + PAIR_CHUNK]] + j
-                bs = best4[cb, cs]
-                tt, ok = _tile_forms(bvh.bmat[tile], o4[:, cb, cs],
-                                     d4[:, cb, cs], bs)
-                tm = torch.where(ok, tt, BIG)
-                tb = tm.amin(1)
-                win = torch.where(tm <= tb[:, None], lanes,
-                                  CLUSTER_LANES).amin(1)
-                upd = tb < bs
-                best4[cb, cs] = torch.where(upd, tb, bs)
-                code4[cb, cs] = torch.where(
-                    upd, tile[:, None] * CLUSTER_LANES + win, code4[cb, cs])
-        vis[a] += tpc
-        sb[a] += tpc * bits.sum(-1)
-        bm[a] = torch.where(live[a], best[a], 0.0).amax(-1)
+        nd_a = ring[a, tail[a] % RING]
+        nd_b = ring[a, (tail[a] + 1) % RING]
+        two = n_avail[a] >= 2
+        grp_a = r.groups(bvh.boxes, nd_a, a, best[a])
+        grp_b = r.groups(bvh.boxes, nd_b, a, best[a]) & two[:, None, None]
+        _closest_leaf(r, bvh, a, nd_a, grp_a, best4, code4, lanes)
+        _closest_leaf(r, bvh, a[two], nd_b[two], grp_b[two], best4, code4,
+                      lanes)
+        sb[a] += tpc * (grp_a.any(-1).sum(-1) + grp_b.any(-1).sum(-1))
+        tail[a] += n_avail[a].clamp(max=2)
+        ref = a[tail[a] % BM_PERIOD < 2]
+        bm[ref] = torch.where(live[ref], best[ref], 0.0).amax(-1)
     code[sel] = bcode.to(torch.int32)
     t_out[sel] = best
-    visits[sel] = vis.to(torch.int32)
+    visits[sel] = (tail * tpc).to(torch.int32)
     subs[sel] = sb.to(torch.int32)
     return code.reshape(-1), t_out.reshape(-1), visits, subs
 
 
 def cluster_occluded_plain(x, bvh: ClusterBVH):
     """Plain version of the any-hit kernel: bool [Nc], True where a triangle
-    lies at 1e-6 < t < tmax (dead lanes False)."""
+    lies at 1e-6 < t < tmax (dead lanes False).
+
+    The Pallas schedule, lockstep over blocks: leaf k + 1 is fetched before
+    leaf k is processed; each tile is masked against the live unoccluded
+    lanes; the walk bound (the largest tmax of a live unoccluded lane) is
+    refreshed after leaf k when k % BM_PERIOD == 0, and a block stops once
+    it is <= 0."""
     nb, fr, sel = _live_blocks(x)
     dev = x.device
     out = torch.zeros((nb, BLOCK), dtype=torch.bool, device=dev)
     if sel.numel() == 0:
         return out.reshape(-1)
     nbl = sel.numel()
-    xb = x.reshape(8, nb, BLOCK)[:, sel]
-    o, d, tmax = xb[0:3], xb[3:6], xb[7]
-    inv = _inv(d)
+    r = _Rays(x, sel)
+    tmax = r.tmax
     occ = ~(tmax > 0.0)                     # occluded or dead
     walk = _TopWalk(bvh.boxes, bvh.meta, fr[:, sel], stack_cap(bvh))
     meta1 = bvh.meta[1].to(torch.int64)
     tpc = bvh.tiles_per_cluster
     bm = fr[FR_TLIM, sel].clone()
-    active = torch.ones(nbl, dtype=torch.bool, device=dev)
-    o4, d4 = o.reshape(3, nbl, NSUB, SUB), d.reshape(3, nbl, NSUB, SUB)
     tmax4 = tmax.view(nbl, NSUB, SUB)
     occ4 = occ.view(nbl, NSUB, SUB)
-    while True:
-        leaf = walk.next_leaf(bm, active)
-        active = active & (leaf >= 0)
+    l0 = walk.next_leaf(bm, torch.ones(nbl, dtype=torch.bool, device=dev))
+    active = l0 >= 0
+    k = 0
+    while bool(active.any()):
+        l1 = walk.next_leaf(bm, active)
         a = active.nonzero()[:, 0]
-        if a.numel() == 0:
-            break
-        nd = leaf[a]
+        nd = l0[a]
         t0 = meta1[nd].clamp(min=0) * tpc
         for j in range(tpc):
-            cand = ~occ[a] & _lane_slab(bvh.boxes[:, nd], o[:, a], inv[:, a],
-                                        tmax[a])
-            ai, si = _pairs(cand.view(-1, NSUB, SUB).any(-1))
+            groups = r.groups(bvh.boxes, nd, a,
+                              torch.where(occ[a], 0.0, tmax[a]))
+            ai, si = _pairs(groups.any(-1))
             pb = a[ai]
             for lo in range(0, pb.numel(), PAIR_CHUNK):
                 cb, cs = pb[lo:lo + PAIR_CHUNK], si[lo:lo + PAIR_CHUNK]
                 tile = t0[ai[lo:lo + PAIR_CHUNK]] + j
-                _, ok = _tile_forms(bvh.bmat[tile], o4[:, cb, cs],
-                                    d4[:, cb, cs], tmax4[cb, cs])
+                _, ok = _tile_forms(bvh.bmat[tile], r.o4[:, cb, cs],
+                                    r.d4[:, cb, cs], _group_limit(
+                                        groups, ai[lo:lo + PAIR_CHUNK],
+                                        si[lo:lo + PAIR_CHUNK],
+                                        tmax4[cb, cs]))
                 occ4[cb, cs] = occ4[cb, cs] | ok.any(1)
-        bm[a] = torch.where(~occ[a], tmax[a], 0.0).amax(-1)
-        active = active & (bm > 0.0)
+        if k % BM_PERIOD == 0:
+            bm[a] = torch.where(~occ[a], tmax[a], 0.0).amax(-1)
+        l0 = torch.where(active, l1, l0)
+        k += 1
+        active = active & (l0 >= 0) & (bm > 0.0)
     out[sel] = occ & (tmax > 0.0)
     return out.reshape(-1)
 
@@ -379,20 +483,38 @@ def _check(x, bvh: ClusterBVH):
 
 def _args(x, bvh: ClusterBVH):
     if bvh.bmat.data_ptr() % 16:
-        raise ValueError("bmat must be 16-byte aligned (float4 loads)")
+        raise ValueError("bmat must be 16-byte aligned (TMA bulk copies)")
     return [bvh.boxes.data_ptr(), bvh.meta.data_ptr(), bvh.bmat.data_ptr(),
             x.data_ptr(), bvh.boxes.shape[1], bvh.tiles_per_cluster,
             x.shape[1] // BLOCK]
 
 
-def cluster_closest(x, bvh: ClusterBVH):
+def _stats_ptr(x, stats):
+    """The kernel's optional per-block copy statistics (STATS): an int32
+    [n_blocks, 4] tensor on the rays' card, filled by the launch."""
+    if stats is None:
+        return None
+    if x.device.type != "cuda":
+        raise ValueError("stats count the kernels' tile copies: CUDA only")
+    if (stats.dtype != torch.int32 or stats.device != x.device
+            or tuple(stats.shape) != (x.shape[1] // BLOCK, len(STATS))
+            or not stats.is_contiguous()):
+        raise ValueError(f"stats must be a contiguous int32 "
+                         f"[{x.shape[1] // BLOCK}, {len(STATS)}] tensor on "
+                         f"{x.device}")
+    return stats.data_ptr()
+
+
+def cluster_closest(x, bvh: ClusterBVH, stats=None):
     """Closest hits of the ray tile x [8, Nc] against the ClusterBVH:
     (code int32 [Nc], t f32 [Nc], visits int32 [n_blocks], subs int32
     [n_blocks]) as cluster_closest_plain. The kernel for CUDA tensors, the
-    plain version for CPU tensors."""
+    plain version for CPU tensors; `stats` (CUDA only) receives the
+    kernel's per-block copy statistics (STATS)."""
     _check(x, bvh)
-    if x.device.type == "cpu":
+    if x.device.type == "cpu" and stats is None:
         return cluster_closest_plain(x, bvh)
+    st = _stats_ptr(x, stats)
     nc, nb = x.shape[1], x.shape[1] // BLOCK
     dev = x.device
     code = torch.empty(nc, dtype=torch.int32, device=dev)
@@ -401,23 +523,24 @@ def cluster_closest(x, bvh: ClusterBVH):
     subs = torch.empty(nb, dtype=torch.int32, device=dev)
     rc = _load().lh2_cluster_closest(
         *_args(x, bvh), code.data_ptr(), t.data_ptr(), visits.data_ptr(),
-        subs.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        subs.data_ptr(), st, torch.cuda.current_stream(dev).cuda_stream)
     _check_rc(rc, "cluster_closest")
     cluster_closest.launches += 1
     return code, t, visits, subs
 
 
-def cluster_occluded(x, bvh: ClusterBVH):
+def cluster_occluded(x, bvh: ClusterBVH, stats=None):
     """Any-hit of the ray tile x [8, Nc]: bool [Nc] as
     cluster_occluded_plain. The kernel for CUDA tensors, the plain version
-    for CPU tensors."""
+    for CPU tensors; `stats` (CUDA only) as cluster_closest's."""
     _check(x, bvh)
-    if x.device.type == "cpu":
+    if x.device.type == "cpu" and stats is None:
         return cluster_occluded_plain(x, bvh)
+    st = _stats_ptr(x, stats)
     dev = x.device
     occ = torch.empty(x.shape[1], dtype=torch.bool, device=dev)
     rc = _load().lh2_cluster_occluded(
-        *_args(x, bvh), occ.data_ptr(),
+        *_args(x, bvh), occ.data_ptr(), st,
         torch.cuda.current_stream(dev).cuda_stream)
     _check_rc(rc, "cluster_occluded")
     cluster_occluded.launches += 1

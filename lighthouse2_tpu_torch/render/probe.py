@@ -8,8 +8,8 @@ bvh_heatmap, gbuffer_views, bvh_print and probe_pixel. Differences:
     trace_closest(stats=True), the closest-hit kernel on a card and its plain
     BVH4 walk on the CPU, where JAX counts the steps of its BVH2 lockstep
     walk; on the cluster path (intersector="cluster") both colour the
-    per-block tile-visit counter of the cluster kernel (whose walk schedule
-    differs from the Pallas kernel's, render/kernels/cluster.py);
+    per-block tile-visit counter of the cluster kernel (the Pallas
+    kernel's walk schedule, render/kernels/cluster.py);
   - gbuffer_views runs the classic executor with filter_enabled, whatever
     config.path_regen says (as JAX's render_pass_jit does);
   - bvh_print prints the BVH2 line exactly as JAX does, then a line on the

@@ -11,14 +11,17 @@ those on the card):
     cuts none);
   - both plain walks against JAX's Pallas kernels in interpret mode
     (trace_cluster_bvh(interpret=True), as tests/test_cluster_kernel.py runs
-    them) on 2,500 rays (not a multiple of 1024), every seventh lane dead:
-    the hit triangle on >= 99.9% of lanes and t within rtol 2e-4 (as
-    test_torch_trace.py; JAX evaluates the forms with an MXU-precision
-    matrix product, the port term by term), the 72-row payload (material
-    rows baked) equal on the agreeing lanes but for row 31 (t) and rows
-    38 / 39 (the block counters, whose walk schedule differs by design),
-    occlusion on >= 99.9%; at tiles_per_cluster 2 through a ray_sort_perm
-    permutation;
+    them, once for the module) on 2,500 rays (not a multiple of 1024),
+    every seventh lane dead: the hit triangle on >= 99.9% of lanes and t
+    within rtol 2e-4 (as test_torch_trace.py; JAX evaluates the forms with
+    an MXU-precision matrix product, the port term by term), the 72-row
+    payload (material rows baked) equal on the agreeing lanes but for row
+    31 (t) and rows 38 / 39 (the block counters), occlusion on >= 99.9%;
+    at tiles_per_cluster 2 through a ray_sort_perm permutation;
+  - the plain closest walk's per-block tile visits and sub-packet
+    intersections against JAX's payload rows 38 / 39 on the blocks whose
+    hits all agree: both run the Pallas schedule (RING = 4 leaves, two
+    a step, the bound refreshed every BM_PERIOD = 8);
   - ray_sort_perm (both keys, dead lanes), bake_material_rows,
     prepare_pay_tiles and rebake_geometry against JAX's: the permutations
     and the baked tiles equal, >= 99.99% of the rebaked form coefficients
@@ -137,10 +140,16 @@ def _jax_trace(cb, o, d, tmax, anyhit, **kw):
                                     interpret=True, **kw)
 
 
-def test_plain_walks_match_pallas_interpret(tri_scene):
+@pytest.fixture(scope="module")
+def pallas_runs(tri_scene):
+    """JAX's interpret-mode Pallas kernels on 2,500 rays for each cut (at
+    tiles_per_cluster 2 through a ray_sort_perm permutation): {tpc: dict(
+    perm, inv, kw, t, payload, occ)}, computed once for the tests below."""
     o, d, tmax = _rays(2500)
     mpack = tri_scene["mpack"]
     to, td, tt = (torch.from_numpy(a) for a in (o, d, tmax))
+    short = np.where(tmax > 0, 1.5, 0.0).astype(np.float32)
+    out = {}
     for tpc, (jc, tc) in tri_scene["cuts"].items():
         perm = inv = None
         kw = {}
@@ -151,12 +160,28 @@ def test_plain_walks_match_pallas_interpret(tri_scene):
         jt, jpay = _jax_trace(jc, o, d, tmax, False,
                               paym=jtrace.bake_material_rows(
                                   jc, jnp.asarray(mpack)), **kw)
-        jt, jpay = np.asarray(jt), np.asarray(jpay)
+        jocc = _jax_trace(jc, o, d, short, True, **kw)
+        out[tpc] = dict(perm=perm, inv=inv, t=np.asarray(jt),
+                        payload=np.asarray(jpay), occ=np.asarray(jocc))
+    return dict(rays=(o, d, tmax, short), runs=out)
+
+
+def _jax_prim(jpay):
+    return np.where(jpay[jcl.PAY_PRIM] >= 0,
+                    jpay[jcl.PAY_PRIM].astype(np.int64), -1)
+
+
+def test_plain_walks_match_pallas_interpret(tri_scene, pallas_runs):
+    o, d, tmax, short = pallas_runs["rays"]
+    mpack = tri_scene["mpack"]
+    to, td, tt = (torch.from_numpy(a) for a in (o, d, tmax))
+    for tpc, (jc, tc) in tri_scene["cuts"].items():
+        run = pallas_runs["runs"][tpc]
+        perm, inv, jt, jpay = run["perm"], run["inv"], run["t"], run["payload"]
         t, prim, pay = tk.trace_cluster_bvh(
             to, td, tc, tt, paym=tk.bake_material_rows(
                 tc, torch.from_numpy(mpack)), perm=perm, inv=inv)
-        jprim = np.where(jpay[jcl.PAY_PRIM] >= 0,
-                         jpay[jcl.PAY_PRIM].astype(np.int64), -1)
+        jprim = _jax_prim(jpay)
         same = prim.numpy() == jprim
         assert same.mean() >= AGREE, same.mean()
         hit = same & (jprim >= 0)
@@ -175,12 +200,43 @@ def test_plain_walks_match_pallas_interpret(tri_scene):
             np.argsort(inv.numpy())]
         assert (vis.reshape(-1)[:2048].reshape(2, 1024).std(-1) == 0).all()
 
-        short = np.where(tmax > 0, 1.5, 0.0).astype(np.float32)
-        jocc = np.asarray(_jax_trace(jc, o, d, short, True, **kw))
         occ = tk.trace_cluster_bvh(to, td, tc, torch.from_numpy(short),
                                    anyhit=True, perm=perm, inv=inv).numpy()
-        assert (occ == jocc).mean() >= AGREE
+        assert (occ == run["occ"]).mean() >= AGREE
         assert 0.05 < occ.mean() < 0.95 and not occ[tmax == 0].any()
+
+
+def test_plain_counters_match_pallas_schedule(tri_scene, pallas_runs):
+    """The plain closest walk runs the Pallas kernel's schedule (RING,
+    two leaves a step, BM_PERIOD), so its per-block tile visits and
+    sub-packet intersections are JAX's payload rows 38 and 39 on every
+    block whose lanes all hit what the Pallas kernel hits (the forms round
+    differently, and a different best t may mark another sub-packet)."""
+    o, d, tmax, _ = pallas_runs["rays"]
+    n = o.shape[0]
+    for tpc, (_, tc) in tri_scene["cuts"].items():
+        run = pallas_runs["runs"][tpc]
+        perm = run["perm"]
+        x = tk.ray_tile(torch.from_numpy(o), torch.from_numpy(d),
+                        torch.from_numpy(tmax), perm)
+        code, _, visits, subs = tk.cluster_closest_plain(x, tc)
+        # kernel lane order: lane p traces ray perm[p]
+        order = np.arange(n) if perm is None else perm.numpy()
+        jpay = run["payload"][:, order]
+        code = code.numpy()[:n]
+        prim = np.where(code >= 0, tc.prim.numpy().reshape(-1)[
+            np.maximum(code, 0)], -1)
+        blocks = np.arange(n) // tk.BLOCK
+        nb = blocks[-1] + 1
+        agree = np.ones(nb, bool)
+        np.logical_and.at(agree, blocks, prim == _jax_prim(jpay))
+        first = np.arange(nb) * tk.BLOCK
+        assert agree.sum() >= nb - 1 and (visits.numpy() > 0).all()
+        np.testing.assert_array_equal(
+            visits.numpy()[agree], jpay[tk.PAY_STAT_VISITS][first][agree])
+        np.testing.assert_array_equal(
+            subs.numpy()[agree], jpay[tk.PAY_STAT_SUBS][first][agree])
+        assert tk.RING == 4 and tk.BM_PERIOD == 8
 
 
 def test_sort_bake_pack_rebake_match_jax(tri_scene):
