@@ -29,9 +29,10 @@ Phases; any failure exits non-zero before the result line is printed:
      counts; then both kernels' times on the numpy single-level tree for
      the same three batches;
   3. the main path: bathroom 512x512, path 16, path regeneration, through
-     render_pass — 1 warm-up and 3 timed passes; Mrays/s (extension +
-     shadow rays), per-bounce ray counts, peak memory, the image; each
-     kernel must launch exactly 16 times a pass; then one profiled pass;
+     render_pass_auto (the regen executor) — 1 warm-up and 3 timed
+     passes; Mrays/s (extension + shadow rays), per-bounce ray counts, peak
+     memory, the image; each kernel must launch exactly 16 times a pass;
+     then one profiled pass;
   4. a 64x64 Cornell box rendered on the card and on the CPU (plain
      versions), compared per pixel;
   5. [train] the fwd+bwd headline (bench.py:291-297): bathroom 512x512,
@@ -82,9 +83,10 @@ Phases; any failure exits non-zero before the result line is printed:
  10. [filter] the bathroom 512x512 through RenderAPI.create(
      "wavefront_filter") (classic executor, spp 1, path 16, Lambert, TAA):
      1 warm-up and FILTER_FRAMES frames, the camera moving FILTER_MOVE and
-     turning FILTER_TURN a frame; per frame the ms of render_pass and of
+     turning FILTER_TURN a frame; per frame the ms of the pass and of
      the filter (SVGF + TAA + unsharpen), each closed by a synchronize, the
-     launches of each kernel (must equal the bounces with a live lane), the
+     launches of each kernel (must equal the path length: the core's
+     render_pass_auto runs render_pass_unrolled on the card), the
      share of pixels whose history survived reprojection (must be > 0),
      the image (finite); peak memory; a profiled frame; the filter alone on
      one pass's G-buffers (ms, device ms and launches); the last filtered
@@ -198,7 +200,7 @@ Phases; any failure exits non-zero before the result line is printed:
      the common bound. (a') the same gates on a tiles_per_cluster 2 cut of
      the tree (cut_clusters(min_tpc=2)), the first TPC2_BLOCKS blocks of
      each batch: the kernels' path for clusters of several tiles. (b) the bathroom 512x512,
-     path 16, regen through render_pass: 1 warm-up and CLUSTER_PASSES
+     path 16, regen through render_pass_auto: 1 warm-up and CLUSTER_PASSES
      timed passes, each launching each cluster kernel 16 times and the BVH4
      kernels never; Mrays/s, ms a pass, peak memory; the image against
      the "auto" passes of the same run (FRAC_BAD_MAX, MEAN_REL_MAX: the
@@ -215,6 +217,25 @@ Phases; any failure exits non-zero before the result line is printed:
      scene-sharded pass on a 1x1 NCCL mesh (path CLUSTER_SHARD_PATH)
      under "cluster", each against its "auto" counterpart (FRAC_BAD_MAX,
      MEAN_REL_MAX), launching only the cluster kernels.
+ 20. [executors] the JAX package's executor entry points on the default
+     tree: the bathroom 512x512, spp 1, path 16, Lambert, "auto" (BVH4).
+     (a) one pass from a fresh state through each of EXEC_FORMS
+     (render_pass, render_pass_jit, render_pass_staged,
+     render_pass_unrolled and render_pass_auto with a classic config,
+     render_pass_regen and render_pass_auto with path_regen=True), the
+     launch counts set to 0 before each and read after; the forms that
+     read nothing back run it under torch.cuda.set_sync_debug_mode(
+     "error"), so any host synchronisation raises. Gates: every image
+     equal to its family's reference (render_pass, render_pass_regen) on
+     every pixel (pixel counts too for regen), the per-bounce ray counts
+     and samples_completed equal, each kernel launched once a bounce with
+     a live lane (16 + 16). (b) per form: wall ms a pass (1 warm-up +
+     EXEC_PASSES timed, the clock stopped after a synchronize), device ms,
+     busy share and device launches of one profiled pass, and the host
+     synchronisations of one more (set_sync_debug_mode("warn")). (c)
+     [staged profile]: one profiled render_pass_staged, the device ms of
+     each stage summed over the bounces, from its record_function range,
+     and its share of the pass's device time.
 It then prints one JSON line of per-kernel numbers (the two BVH4 kernels
 and the two cluster kernels), the card's name and power limit, and last
 the result line {"ok": true, "device": {...}}.
@@ -292,6 +313,22 @@ CLUSTER_PASSES = 3         # timed passes of [cluster] (b)
 TPC2_BLOCKS = 32           # 1024-ray blocks a batch of [cluster] (a')
 CLUSTER_SHARD_PATH = 4     # path length of [cluster] (e)'s scene-sharded pass
 LOSS_RTOL = 1e-4           # tests/test_torch_grad.py: the loss, relative
+EXEC_PASSES = 3            # timed passes of each [executors] form
+# [executors]: (label, render/wavefront.py entry point, classic or regen
+# config, whether it reads back from the device: only render_pass and
+# render_pass_jit do, one bool a bounce)
+EXEC_FORMS = (("render_pass", "render_pass", "classic", True),
+              ("render_pass_jit", "render_pass_jit", "classic", True),
+              ("render_pass_staged", "render_pass_staged", "classic", False),
+              ("render_pass_unrolled", "render_pass_unrolled", "classic",
+               False),
+              ("render_pass_auto", "render_pass_auto", "classic", False),
+              ("render_pass_regen", "render_pass_regen", "regen", False),
+              ("render_pass_auto_regen", "render_pass_auto", "regen", False))
+EXEC_REFERENCE = dict(classic="render_pass", regen="render_pass_regen")
+EXEC_STAGES = ("_stage_generate", "_stage_prepare", "_stage_trace",
+               "_stage_shade", "_stage_occlude", "_stage_apply",
+               "_stage_finish")
 # device-time shares of a fwd+bwd step: the cluster path's re-attach
 # backward (index_add_) and the gather backward
 TRAIN_SHARES = dict(reattach_index_add="indexFunc",
@@ -462,7 +499,7 @@ def main_path(scene, view, cfg, dev, passes):
     """Phase 3. Returns the numbers of the timed passes."""
     import torch
     from lighthouse2_tpu_torch.render.wavefront import (
-        AccumState, finalize, render_pass)
+        AccumState, finalize, render_pass_auto)
 
     state = AccumState.make(cfg, dev)
     if dev.type == "cuda":
@@ -470,7 +507,7 @@ def main_path(scene, view, cfg, dev, passes):
     _zero_counts()
     counts = [(0, 0)]
     t0 = time.perf_counter()
-    state, stats = render_pass(scene, view, state, cfg)      # warm-up
+    state, stats = render_pass_auto(scene, view, state, cfg)      # warm-up
     counts.append(tuple(_counts().values()))
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -478,7 +515,7 @@ def main_path(scene, view, cfg, dev, passes):
     all_stats = []
     t0 = time.perf_counter()
     for _ in range(passes):
-        state, stats = render_pass(scene, view, state, cfg)
+        state, stats = render_pass_auto(scene, view, state, cfg)
         all_stats.append(stats)
         counts.append(tuple(_counts().values()))
     if dev.type == "cuda":
@@ -518,24 +555,37 @@ def _kernel_name(key):
     return head[-1] if head else key
 
 
-def _profile(fn, dev, tag, shares=None):
+def _device_rows(prof):
+    """The device-side rows of prof.key_averages() (kernels, copies,
+    memsets), without the device spans of record_function ranges (the
+    staged executor's stages), which would count their kernels twice."""
+    from torch.autograd import DeviceType
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and e.key not in EXEC_STAGES]
+
+
+def _profile(fn, dev, tag, shares=None, cpu=True):
     """Run fn once under torch.profiler: device time by kernel name.
     `shares` {label: substring}: the share of the device time of the
-    kernels whose names contain the substring."""
+    kernels whose names contain the substring. cpu=False records the
+    device activity only, which the profiler parses in a fraction of the
+    time (no host ops: ~50k of them a pass)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize(dev)
         wall = time.perf_counter() - t0
     rows = []      # device-side events only (kernels, copies, memsets)
-    for e in prof.key_averages():
+    for e in _device_rows(prof):
         us = getattr(e, "self_device_time_total",
                      getattr(e, "self_cuda_time_total", 0.0))
-        if e.device_type == DeviceType.CUDA and us > 0:
+        if us > 0:
             rows.append((us, e.key, e.count))
     rows.sort(reverse=True)
     total = sum(r[0] for r in rows)
@@ -563,8 +613,8 @@ def _profile(fn, dev, tag, shares=None):
 
 def profile_pass(scene, view, cfg, state, dev):
     """One more forward pass under torch.profiler."""
-    from lighthouse2_tpu_torch.render.wavefront import render_pass
-    return _profile(lambda: render_pass(scene, view, state, cfg), dev,
+    from lighthouse2_tpu_torch.render.wavefront import render_pass_auto
+    return _profile(lambda: render_pass_auto(scene, view, state, cfg), dev,
                     "[profile] ")
 
 
@@ -576,7 +626,7 @@ def reference_check(dev, intersector="auto", tag="[reference] "):
     import torch
     from lighthouse2_tpu_torch.core.types import RenderConfig
     from lighthouse2_tpu_torch.render.wavefront import (
-        AccumState, finalize, render_pass)
+        AccumState, finalize, render_pass_auto)
     from lighthouse2_tpu_torch.scene.presets import cornell_box
 
     cfg = RenderConfig(width=64, height=64, spp_per_pass=1, max_path_length=4,
@@ -590,7 +640,7 @@ def reference_check(dev, intersector="auto", tag="[reference] "):
         st = AccumState.make(cfg, where)
         before = _all_counts()
         for _ in range(2):
-            st, _ = render_pass(ds, view, st, cfg)
+            st, _ = render_pass_auto(ds, view, st, cfg)
         launched = _launch_deltas(before, _all_counts())
         out[where.type] = (st.accumulator.cpu(), finalize(st).cpu())
         if where.type == "cuda" and not all(
@@ -630,13 +680,13 @@ def train_path(scene, view, cfg, dev, steps):
     import torch
     from lighthouse2_tpu_torch.diff.render import regen_value_and_grad
     from lighthouse2_tpu_torch.render.wavefront import (
-        AccumState, ensure_regen_state, render_pass)
+        AccumState, ensure_regen_state, render_pass_auto)
 
     cfg = dataclasses.replace(cfg, remat=True)
     size = cfg.width
     params, target = _headline_params(scene, size, dev)
     # ray count from one forward stats pass (bench.py:129-134)
-    _, stats0 = render_pass(scene, view, AccumState.make(cfg, dev), cfg)
+    _, stats0 = render_pass_auto(scene, view, AccumState.make(cfg, dev), cfg)
     fixed_rays = int(stats0["total_extension"]) + int(stats0["total_shadow"])
     state = ensure_regen_state(view, AccumState.make(cfg, dev), cfg)
     t0 = time.perf_counter()
@@ -852,23 +902,25 @@ def disney_path(cfg, dev, passes):
 def lambert_api_path(host, cam, cfg, dev, passes):
     """Phase 6: the Lambert scene of phase 3 (already synced to the card)
     through RenderAPI, timed as the Disney passes are. Then the two timers
-    alternate, twice: `passes` render_pass calls with one synchronize at the
-    end (phase 3's) and `passes` api.render() calls (ms per pass each)."""
+    alternate, twice: `passes` render_pass_auto calls with one synchronize
+    at the end (phase 3's) and `passes` api.render() calls (ms per pass
+    each)."""
     import torch
     from lighthouse2_tpu_torch.api import RenderAPI
-    from lighthouse2_tpu_torch.render.wavefront import AccumState, render_pass
+    from lighthouse2_tpu_torch.render.wavefront import (
+        AccumState, render_pass_auto)
 
     api = RenderAPI.create("wavefront", cfg, device=dev)
     api.scene, api.camera = host, cam
     res = api_passes(api, dev, passes, "[disney] Lambert through RenderAPI: ")
     scene, view = host.sync(dev), cam.get_view(dev)
-    state, _ = render_pass(scene, view, AccumState.make(cfg, dev), cfg)
+    state, _ = render_pass_auto(scene, view, AccumState.make(cfg, dev), cfg)
     alt = dict(render_pass_ms=[], api_ms=[])
     for _ in range(2):
         torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
         for _ in range(passes):
-            state, _ = render_pass(scene, view, state, cfg)
+            state, _ = render_pass_auto(scene, view, state, cfg)
         torch.cuda.synchronize(dev)
         alt["render_pass_ms"].append((time.perf_counter() - t0) * 1e3 / passes)
         alt["api_ms"].append(sum(api.render()["render_time"]
@@ -931,7 +983,7 @@ def golden_check(dev):
     out = {}
     for where in (dev, torch.device("cpu")):
         t0 = time.perf_counter()
-        a = golden.render_golden(where).cpu()
+        a = golden.render_golden(device=where).cpu()
         out[where.type] = (a, time.perf_counter() - t0)
     (ga, g_s), (ca, c_s) = out[dev.type], out["cpu"]
     close = torch.isclose(ga, ca, rtol=1e-3, atol=1e-4).all(-1)
@@ -1138,7 +1190,8 @@ def cli_check(gltf, out_png, size=256):
 
 def _live_bounces(stats):
     """Bounces of a classic pass that still had a live lane: each launches
-    each trace kernel once."""
+    each trace kernel once in render_pass (render_pass_unrolled launches
+    them every bounce)."""
     import numpy as np
     return int((np.asarray(stats["extension_per_bounce"]) > 0).sum())
 
@@ -1245,11 +1298,13 @@ def filter_path(host, cam, dev, frames, size=512):
     print("[filter] " + json.dumps({k: v for k, v in out.items()
                                     if k not in ("frames", "profile")}),
           flush=True)
+    # the filter core's render_pass_auto runs render_pass_unrolled on the
+    # card: each kernel launches once every bounce, live or not
     for f in fs:
-        want = {k: f["live_bounces"] for k in f["launches"]}
+        want = {k: cfg.max_path_length for k in f["launches"]}
         if f["launches"] != want:
-            raise AssertionError("each kernel must launch once per bounce "
-                                 f"with a live lane: {f}")
+            raise AssertionError("each kernel must launch once per bounce: "
+                                 f"{f}")
         if not f["image_finite"]:
             raise AssertionError(f"filtered frame not finite: {f}")
         if f["history_share"] <= 0.0:
@@ -1779,8 +1834,8 @@ def parallel_path(host, cam, dev, size=512, path_len=16):
 
     store = tempfile.mkdtemp(prefix="chip_smoke_dist_", dir=BUILD_DIR)
     try:
-        world = init_distributed(f"file://{store}/store", world_size=1,
-                                 rank=0, device=dev)
+        world = init_distributed(f"file://{store}/store", num_processes=1,
+                                 process_id=0, device=dev)
         res = dict(world_size=world, backend=dist.get_backend())
         if res["backend"] != "nccl":
             raise AssertionError(f"the card's group must be NCCL: {res}")
@@ -1835,7 +1890,8 @@ def parallel_path(host, cam, dev, size=512, path_len=16):
                             - target) ** 2)
         (g1,) = torch.autograd.grad(loss1, color)
         loss_s, g_s = train_step_sharded(ds, cview, target, tcfg, mesh,
-                                         insert, ds.materials.color)
+                                         lambda s: s.materials.color, insert,
+                                         ds.materials.color)
         g1, g_s = g1.cpu().numpy(), g_s.cpu().numpy()
         res.update(loss=loss_s.item(), loss_single=loss1.item(),
                    grad_close=float(np.isclose(g_s, g1, rtol=1e-5,
@@ -2085,8 +2141,8 @@ def scene_shard_path(host, cam, dev, size=512, path_len=16):
     scene, view = host.sync(dev), cam.get_view(dev)
     work = tempfile.mkdtemp(prefix="chip_smoke_shard_", dir=BUILD_DIR)
     try:
-        init_distributed(f"file://{work}/store1", world_size=1, rank=0,
-                         device=dev)
+        init_distributed(f"file://{work}/store1", num_processes=1,
+                         process_id=0, device=dev)
         res = dict(backend=dist.get_backend())
         if res["backend"] != "nccl":
             raise AssertionError(f"(a) must run on NCCL: {res}")
@@ -2419,7 +2475,7 @@ def _all_counts():
 
 
 def cluster_main(scene, view, cfg, dev, passes):
-    """[cluster] (b): render_pass with intersector="cluster" (the main
+    """[cluster] (b): render_pass_auto with intersector="cluster" (the main
     path's configuration otherwise), 1 warm-up and `passes` timed passes,
     each launching each cluster kernel max_path_length times and the BVH4
     kernels never; the image against the "auto" passes of the same run
@@ -2427,24 +2483,24 @@ def cluster_main(scene, view, cfg, dev, passes):
     may differ); one profiled pass. Returns the numbers."""
     import torch
     from lighthouse2_tpu_torch.render.wavefront import (
-        AccumState, finalize, render_pass)
+        AccumState, finalize, render_pass_auto)
     ccfg = dataclasses.replace(cfg, intersector="cluster")
     st_auto = AccumState.make(cfg, dev)
     for _ in range(passes + 1):
-        st_auto, _ = render_pass(scene, view, st_auto, cfg)
+        st_auto, _ = render_pass_auto(scene, view, st_auto, cfg)
     state = AccumState.make(ccfg, dev)
     _peak_memory(dev, reset=True)
     _zero_counts()
     counts = [_all_counts()]
     t0 = time.perf_counter()
-    state, _ = render_pass(scene, view, state, ccfg)          # warm-up
+    state, _ = render_pass_auto(scene, view, state, ccfg)          # warm-up
     counts.append(_all_counts())
     _sync(dev)
     warm_s = time.perf_counter() - t0
     all_stats = []
     t0 = time.perf_counter()
     for _ in range(passes):
-        state, stats = render_pass(scene, view, state, ccfg)
+        state, stats = render_pass_auto(scene, view, state, ccfg)
         all_stats.append(stats)
         counts.append(_all_counts())
     _sync(dev)
@@ -2474,8 +2530,9 @@ def cluster_main(scene, view, cfg, dev, passes):
     if not (res["image_finite"] and a["frac_bad"] < FRAC_BAD_MAX
             and a["mean_rel"] < MEAN_REL_MAX):
         raise AssertionError(f"the cluster image differs from auto's: {a}")
-    res["profile"] = _profile(lambda: render_pass(scene, view, state, ccfg),
-                              dev, "[cluster profile] ")
+    res["profile"] = _profile(
+        lambda: render_pass_auto(scene, view, state, ccfg), dev,
+        "[cluster profile] ")
     return res
 
 
@@ -2575,8 +2632,8 @@ def cluster_bdpt_shard(scene, view, cfg, dev):
                 bcfg, max_path_length=CLUSTER_SHARD_PATH))):
         if fn is None:
             work = tempfile.mkdtemp(prefix="chip_smoke_cshard_", dir=BUILD_DIR)
-            init_distributed(f"file://{work}/store", world_size=1, rank=0,
-                             device=dev)
+            init_distributed(f"file://{work}/store", num_processes=1,
+                             process_id=0, device=dev)
             if dist.get_backend() != "nccl":
                 raise AssertionError("(e) must run on NCCL")
             mesh = make_mesh2d(1, 1, device=dev)
@@ -2650,6 +2707,182 @@ def cluster_path(host, scene, view, cfg, dev, kern, train_prof):
     res["seconds"] = secs
     print("[cluster] seconds: " + json.dumps(secs), flush=True)
     return res
+
+
+def _sync_count(fn):
+    """fn() and the host synchronisations it makes on the card: the
+    warnings of torch.cuda.set_sync_debug_mode("warn") while it runs.
+    Returns (fn's result, count)."""
+    import warnings
+    import torch
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchronizing CUDA operation" in str(w.message)
+                    for w in caught)
+
+
+def _no_sync(fn):
+    """fn() under torch.cuda.set_sync_debug_mode("error"): any operation
+    that synchronises the host with the card raises. The mode is set back
+    afterwards."""
+    import torch
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def staged_profile(scene, view, cfg, dev):
+    """[executors] (c): one render_pass_staged under torch.profiler; the
+    device ms of each stage summed over the bounces, from its
+    record_function range (the kernels launched inside it), and its share
+    of the pass's device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    import torch
+    from lighthouse2_tpu_torch.render import wavefront as wf
+
+    state = wf.AccumState.make(cfg, dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        wf.render_pass_staged(scene, view, state, cfg)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+    dev_us = lambda e: getattr(e, "device_time_total",
+                               getattr(e, "cuda_time_total", 0.0))
+    self_us = lambda e: getattr(e, "self_device_time_total",
+                                getattr(e, "self_cuda_time_total", 0.0))
+    device = _device_rows(prof)
+    total = sum(self_us(e) for e in device)
+    stages = {}
+    for e in prof.key_averages():
+        if e.key in EXEC_STAGES and e.device_type == DeviceType.CPU:
+            stages[e.key] = dict(ms=dev_us(e) / 1e3, calls=e.count)
+    # the kernels each range's device time holds: those whose launch the
+    # profiler ties to an op inside it
+    tied = {name: set() for name in EXEC_STAGES}
+
+    def walk(e, stage):
+        tied[stage].update(_kernel_name(k.name) for k in e.kernels)
+        for ch in e.cpu_children:
+            walk(ch, stage)
+    for e in prof.events():
+        if e.name in EXEC_STAGES and e.device_type == DeviceType.CPU:
+            walk(e, e.name)
+    # each trace kernel launches inside one stage only; where the profiler
+    # does not tie a launch from the kernels' own library (ctypes, its own
+    # CUDA runtime) to the range, its time is added to that stage by name
+    for stage, kernel in (("_stage_trace", "closest_kernel"),
+                          ("_stage_occlude", "occluded_kernel")):
+        k_ms = sum(self_us(e) for e in device
+                   if _kernel_name(e.key) == kernel) / 1e3
+        s = stages.setdefault(stage, dict(ms=0.0, calls=0))
+        s["kernel_ms"] = k_ms
+        s["kernel_added_by_name"] = kernel not in tied[stage]
+        if s["kernel_added_by_name"]:
+            s["ms"] += k_ms
+    for s in stages.values():
+        s["share"] = s["ms"] * 1e3 / max(total, 1e-9)
+    res = dict(wall_ms=wall * 1e3, device_ms=total / 1e3,
+               device_busy_share=total / 1e3 / (wall * 1e3), stages=stages,
+               stages_share=sum(s["share"] for s in stages.values()))
+    print("[staged profile] " + json.dumps(res), flush=True)
+    missing = [name for name in EXEC_STAGES if name not in stages]
+    if missing:
+        raise AssertionError(f"[staged profile] no range of {missing}")
+    for name in EXEC_STAGES:
+        s = stages[name]
+        print(f"[staged profile] {name:15s} {s['ms']:9.3f} ms "
+              f"{s['share']:7.2%} of the pass's device time, {s['calls']} "
+              "calls", flush=True)
+    return res
+
+
+def executors_path(scene, view, dev, size=512, path_len=16):
+    """Phase 20, [executors]: the JAX package's executor entry points on the
+    bathroom at size^2, spp 1, path `path_len`, Lambert, intersector "auto"
+    (BVH4). Returns the numbers per form."""
+    import torch
+    from lighthouse2_tpu_torch.core.types import RenderConfig
+    from lighthouse2_tpu_torch.render import wavefront as wf
+
+    cfg = RenderConfig(width=size, height=size, spp_per_pass=1,
+                       max_path_length=path_len)
+    rcfg = dataclasses.replace(cfg, path_regen=True)
+    out, ref = {}, {}
+    for name, fn_name, family, readback in EXEC_FORMS:
+        fn = getattr(wf, fn_name)
+        c = rcfg if family == "regen" else cfg
+        _zero_counts()
+        one = lambda: fn(scene, view, wf.AccumState.make(c, dev), c)
+        # (a) one pass from a fresh state, also the warm-up of (b). On the
+        # card the forms without readback run it under the sync gate, which
+        # raises on any host synchronisation (so they make none); the others
+        # count theirs
+        syncs = None
+        if dev.type != "cuda":
+            state, stats = one()
+        elif readback:
+            (state, stats), syncs = _sync_count(one)
+        else:
+            state, stats = _no_sync(one)
+            syncs = 0
+        launches = _counts()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        ext = stats["extension_rays"].cpu()
+        r = dict(family=family, launches=launches, host_syncs=syncs,
+                 live_bounces=int((ext > 0).sum()),
+                 extension_rays=ext.tolist(),
+                 shadow_rays=stats["shadow_rays"].tolist(),
+                 samples_completed=(int(stats["samples_completed"])
+                                    if c.path_regen else None))
+        if family not in ref:
+            ref[family] = (state, r)
+        rs, rr = ref[family]
+        r["image_equal"] = bool(torch.equal(state.accumulator,
+                                            rs.accumulator))
+        if c.path_regen:
+            r["image_equal"] &= bool(torch.equal(state.pixel_count,
+                                                 rs.pixel_count))
+        r["stats_equal"] = all(r[k] == rr[k] for k in (
+            "extension_rays", "shadow_rays", "samples_completed"))
+        # (b) EXEC_PASSES timed passes after (a) and one profiled pass
+        st = state
+        _sync(dev)
+        t0 = time.perf_counter()
+        for _ in range(EXEC_PASSES):
+            st, _ = fn(scene, view, st, c)
+        _sync(dev)
+        r["wall_ms"] = (time.perf_counter() - t0) * 1e3 / EXEC_PASSES
+        prof = _profile(lambda: fn(scene, view, st, c), dev,
+                        f"[executors] {name} profile: ", cpu=False)
+        r.update(device_ms=prof["device_ms"],
+                 device_busy_share=prof["device_busy_share"],
+                 device_launches=prof["device_launches"])
+        print(f"[executors] {name}: " + json.dumps(r), flush=True)
+        out[name] = r
+    out["staged_profile"] = staged_profile(scene, view, cfg, dev)
+    bad = []
+    for name, r in ((k, v) for k, v in out.items() if k != "staged_profile"):
+        want = {k: path_len for k in r["launches"]}
+        if not (r["image_equal"] and r["stats_equal"]):
+            bad.append(f"{name}: image or stats differ from "
+                       f"{EXEC_REFERENCE[r['family']]}'s")
+        if r["launches"] != want or r["live_bounces"] != path_len:
+            bad.append(f"{name}: launches {r['launches']} over "
+                       f"{r['live_bounces']} live bounces, want {path_len} "
+                       "of each kernel, one a live bounce")
+    if bad:
+        raise AssertionError("[executors] " + "; ".join(bad))
+    return out
 
 
 def main() -> int:
@@ -2813,6 +3046,7 @@ def main() -> int:
           f"{rk['collective_bytes']['rays']['total_bytes']} B over rays a "
           f"pass a rank; pixels off {rk['agreement']['frac_bad']:.2e}",
           flush=True)
+    default_scene = scene
     # the cluster tiles are cut for phase 19 only, so that no earlier phase
     # holds them
     scene = host.sync(dev, clusters=True)
@@ -2831,6 +3065,13 @@ def main() -> int:
           f"{ct['shares']['cluster']['reattach_index_add']:.1%} of its device "
           f"time (the auto step's gather backward "
           f"{ct['shares']['auto']['gather_backward']:.1%})", flush=True)
+    t0 = time.perf_counter()
+    execs = executors_path(default_scene, view, dev, size, path_len)
+    print("[executors] on " + card + ": " + json.dumps({
+        name: {k: r[k] for k in ("wall_ms", "device_ms", "device_busy_share",
+                                 "device_launches", "host_syncs")}
+        for name, r in execs.items() if name != "staged_profile"})
+        + f"; {time.perf_counter() - t0:.1f} s", flush=True)
 
     rows = []
     for name, batch, line, sym, key in (
@@ -2856,6 +3097,9 @@ def main() -> int:
                 gbuffer_views=probe_res["launches_gbuffer"][name],
                 viewer_session=viewer["launches"][name]),
             launches_bdpt_per_pass=bdpt["launches_per_pass"][-1][name],
+            launches_executors_per_pass={
+                f: r["launches"][name] for f, r in execs.items()
+                if f != "staged_profile"},
             launches_sharded_per_pass=par["launches_per_sharded_pass"][-1][
                 name],
             launches_scene_sharded_per_pass=shard[

@@ -6,3 +6,7 @@ imports torch and numpy only; the JAX package is the reference its tests
 hold it against. Entry points run on the first CUDA card unless the caller
 passes device="cpu" (see device.py).
 """
+
+__version__ = "0.1.0"
+
+from lighthouse2_tpu_torch.api import RenderAPI  # noqa: F401,E402

@@ -27,11 +27,12 @@ def _half_area(bmin, bmax):
     return e[..., 0] * e[..., 1] + e[..., 1] * e[..., 2] + e[..., 2] * e[..., 0]
 
 
-def build_sah_bvh(v0, v1, v2, max_leaf=4, bins=8, native=True) -> dict:
+def build_sah_bvh(v0, v1, v2, max_leaf=4, bins=8, prefer_native=True) -> dict:
     """Build a BVH2 over triangles (v0, v1, v2 [T,3]); returns the flat
-    dict. native=True: the C++ builder (raises if it cannot be built);
-    native=False: the numpy builder."""
-    if native:
+    dict. prefer_native=True: the C++ builder, which raises if it cannot be
+    built (JAX's falls back to the numpy builder); False: the numpy
+    builder."""
+    if prefer_native:
         from lighthouse2_tpu_torch.native import build_sah_bvh_native
         return build_sah_bvh_native(v0, v1, v2, max_leaf=max_leaf, bins=bins)
     return build_sah_bvh_numpy(v0, v1, v2, max_leaf=max_leaf, bins=bins)

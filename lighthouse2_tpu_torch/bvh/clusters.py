@@ -113,7 +113,8 @@ def build_cluster_bvh(v0, v1, v2, tri: dict | None = None, max_leaf: int = 4,
     v0 = np.asarray(v0, np.float32)
     v1 = np.asarray(v1, np.float32)
     v2 = np.asarray(v2, np.float32)
-    flat = build_sah_bvh(v0, v1, v2, max_leaf=max_leaf, native=native)
+    flat = build_sah_bvh(v0, v1, v2, max_leaf=max_leaf,
+                         prefer_native=native)
     tri = dict(tri or {})
     tri.setdefault("v0", v0)
     tri.setdefault("v1", v1)

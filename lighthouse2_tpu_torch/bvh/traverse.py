@@ -1,11 +1,11 @@
 """BVH2 traversal in plain PyTorch: the BVH2 reference of the trace kernels.
 
 Counterpart of lighthouse2_tpu/bvh/traverse.py (DeviceBVH,
-device_bvh_from_flat, _traverse_chunk, bvh_intersect, bvh_occluded,
-refine_hit, refine_hit_rows and the clipped _refine_tuv backward). All
-rays advance in lockstep: each step every live ray either tests the
-triangles of its leaf, descends into the nearer hit child (pushing the
-farther one), or pops its explicit stack. The trace wrappers detach their
+build_device_bvh, device_bvh_from_flat, _traverse_chunk, bvh_intersect,
+bvh_intersect_counts, bvh_occluded, refine_hit, refine_hit_rows and the
+clipped _refine_tuv backward). All rays advance in lockstep: each step
+every live ray either tests the triangles of its leaf, descends into the
+nearer hit child (pushing the farther one), or pops its explicit stack. The trace wrappers detach their
 rays, as the JAX package stop_gradients its traversal; refine_hit is where
 gradients reach the hit.
 
@@ -38,9 +38,11 @@ import torch
 
 from lighthouse2_tpu_torch.bvh.builder import bvh_depth
 from lighthouse2_tpu_torch.bvh.wide import check_depth4, pack_wide
-from lighthouse2_tpu_torch.core.geometry import BIG_T, mt_comp
+from lighthouse2_tpu_torch.core.geometry import BIG_T, mt_comp, per_lane
+from lighthouse2_tpu_torch.device import resolve_device
 
 STACK_CAP = 64            # per-ray stack entries of the BVH2 walk
+DEFAULT_CHUNK = 1 << 30   # JAX's ray chunk, accepted and not used
 STEPS_PER_CHECK = 4       # traversal steps between convergence checks
 
 
@@ -92,11 +94,26 @@ def upload_bvh(packed: dict, device) -> DeviceBVH:
                         for k, v in packed.items()})
 
 
-def device_bvh_from_flat(flat: dict, v0, v1, v2, device,
-                         max_leaf: int = 4) -> DeviceBVH:
-    """Upload a builder.py flat dict in the traversal layout: the BVH2
-    arrays and the BVH4 collapsed and packed from them."""
-    return upload_bvh(pack_flat(flat, v0, v1, v2, max_leaf), device)
+def build_device_bvh(v0, v1, v2, max_leaf: int = 4, *,
+                     device=None) -> DeviceBVH:
+    """Build the SAH BVH2 over triangles v0, v1, v2 [T,3] (bvh/builder.py
+    build_sah_bvh: the native builder) and upload it with
+    device_bvh_from_flat to `device` (default: the card)."""
+    from lighthouse2_tpu_torch.bvh.builder import build_sah_bvh
+    flat = build_sah_bvh(v0, v1, v2, max_leaf=max_leaf)
+    return device_bvh_from_flat(flat, v0, v1, v2, max_leaf, device=device)
+
+
+def device_bvh_from_flat(flat: dict, v0, v1, v2, max_leaf: int = 4, *,
+                         device=None) -> DeviceBVH:
+    """Upload a builder.py flat dict in the traversal layout to `device`
+    (default: the card): the BVH2 arrays and the BVH4 collapsed and packed
+    from them."""
+    if not isinstance(max_leaf, int):
+        raise TypeError(f"max_leaf must be an int, got {max_leaf!r} (the "
+                        "device is keyword-only: device=...)")
+    return upload_bvh(pack_flat(flat, v0, v1, v2, max_leaf),
+                      resolve_device(device))
 
 
 def check_depth(bvh: DeviceBVH) -> None:
@@ -252,13 +269,16 @@ def _traverse(o, d, t_max, bvh: DeviceBVH, anyhit: bool):
             s = {k: v[live] for k, v in s.items()}
 
 
-def bvh_intersect(o, d, bvh: DeviceBVH, t_max=BIG_T, stats: bool = False):
+def bvh_intersect(o, d, bvh: DeviceBVH, v0=None, e1=None, e2=None,
+                  t_max=BIG_T, chunk: int = DEFAULT_CHUNK, *,
+                  stats: bool = False):
     """Closest hit of [N] rays. Returns (t, prim, u, v) with prim = -1 and
     t = min(t_max, BIG_T) on a miss; with stats=True also the int32 [3, N]
-    per-ray counts (steps, box-pair tests, triangle tests)."""
-    t_max = torch.broadcast_to(torch.as_tensor(t_max, dtype=torch.float32,
-                                               device=o.device),
-                               (o.shape[0],))
+    per-ray counts (steps, box-pair tests, triangle tests). v0, e1, e2 are
+    accepted for JAX's signature and not read (the triangles come from
+    bvh.tri9, as in JAX); chunk is accepted too: the walk takes every ray
+    at once and compacts finished lanes instead."""
+    t_max = per_lane(t_max, o.shape[0], o.device)
     r = _traverse(o, d, t_max, bvh, anyhit=False)
     res = (r["best_t"], r["best_p"], r["best_u"], r["best_v"])
     if stats:
@@ -266,13 +286,22 @@ def bvh_intersect(o, d, bvh: DeviceBVH, t_max=BIG_T, stats: bool = False):
     return res
 
 
-def bvh_occluded(o, d, t_max, bvh: DeviceBVH, stats: bool = False):
+def bvh_intersect_counts(o, d, bvh: DeviceBVH, t_max=BIG_T,
+                         chunk: int = DEFAULT_CHUNK):
+    """bvh_intersect plus each ray's traversal steps, int32 [N] (the
+    ColorDebugBVH instrument, RenderCore_Bart/raytracer.cpp:102-120):
+    (t, prim, u, v, steps). chunk as in bvh_intersect."""
+    *hit, st = bvh_intersect(o, d, bvh, t_max=t_max, stats=True)
+    return (*hit, st[0])
+
+
+def bvh_occluded(o, d, t_max, bvh: DeviceBVH, v0=None, e1=None, e2=None,
+                 chunk: int = DEFAULT_CHUNK, *, stats: bool = False):
     """Any-hit occlusion of [N] rays before t_max. Returns bool [N] (and the
     [3, N] counts with stats=True; the plain version tests a whole leaf
-    before stopping, the kernel stops at the first hit)."""
-    t_max = torch.broadcast_to(torch.as_tensor(t_max, dtype=torch.float32,
-                                               device=o.device),
-                               (o.shape[0],))
+    before stopping, the kernel stops at the first hit). v0, e1, e2 and
+    chunk as in bvh_intersect."""
+    t_max = per_lane(t_max, o.shape[0], o.device)
     r = _traverse(o, d, t_max, bvh, anyhit=True)
     if stats:
         return r["occ"], torch.stack([r["visits"], r["boxes"], r["tests"]])

@@ -16,6 +16,8 @@ import os
 import numpy as np
 import torch
 
+from lighthouse2_tpu_torch.device import resolve_device
+
 MASK_N = 128
 _SIGMA = 1.9          # Ulichney's recommended gaussian sigma
 # R2 additive-recurrence alphas (generalized golden ratio, d=2)
@@ -111,8 +113,11 @@ def get_mask() -> np.ndarray:
     return _cached_mask
 
 
-def device_mask(device) -> torch.Tensor:
-    """The mask as a float32 tensor on `device` (uploaded once per device)."""
+def device_mask(device=None) -> torch.Tensor:
+    """The mask as a float32 tensor on `device` (default: the card),
+    uploaded once per device."""
+    if device is None:
+        device = resolve_device()
     key = str(device)
     if key not in _device_masks:
         _device_masks[key] = torch.from_numpy(get_mask()).to(device)
@@ -125,7 +130,9 @@ def sample(mask, x, y, sample_idx, dim):
     x, y, dim are integer tensors (or ints); sample_idx carries uint32 in
     int64. R2 sequence value + Cranley-Patterson rotation by the mask."""
     s = sample_idx.to(torch.float32)
-    d = torch.as_tensor(dim, device=s.device)
+    # an int dim becomes a device scalar without a host-to-device copy
+    d = (dim if isinstance(dim, torch.Tensor)
+         else torch.full((), dim, dtype=torch.int64, device=s.device))
     alpha = torch.where(d % 2 == 0, _ALPHA[0], _ALPHA[1]).to(torch.float32)
     pair = torch.div(d, 2, rounding_mode="floor").to(torch.float32)
     seq = torch.fmod(alpha * (s + 1.0) + 0.41421356 * pair, 1.0)

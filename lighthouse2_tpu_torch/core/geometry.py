@@ -1,12 +1,15 @@
 """Vector math and intersection primitives on [..., 3] float32 tensors.
 
-Counterpart of lighthouse2_tpu/core/geometry.py: dot, cross, normalize,
-reflect, onb, oriented_frame, tangent_to_world, safe_origin,
-consistent_normal, mt_comp, intersect_bruteforce and occluded_bruteforce,
-with the same arithmetic in the same order; sqrt0 is the port's own (a
-square root whose gradient at 0 is not NaN). The brute-force intersectors
-scan the triangle chunks in a Python loop where JAX runs lax.scan, and take
-a per-lane or scalar t_max in both functions.
+Counterpart of lighthouse2_tpu/core/geometry.py: dot, cross, length,
+normalize, reflect, refract, fresnel_dielectric_exact, schlick_fresnel,
+onb, oriented_frame, tangent_to_world, world_to_tangent, safe_origin,
+consistent_normal, intersect_tri, mt_comp, intersect_aabb,
+intersect_bruteforce, occluded_bruteforce, transform_point and
+transform_vector, with the same arithmetic in the same order; sqrt0 and
+per_lane are the port's own (a square root whose gradient at 0 is not NaN;
+a scalar or tensor as a per-lane tensor without a host copy). The
+brute-force intersectors scan the triangle chunks in a Python loop where JAX
+runs lax.scan, and take a per-lane or scalar t_max in both functions.
 """
 from __future__ import annotations
 
@@ -26,6 +29,10 @@ def cross(a, b):
     return torch.linalg.cross(a, b, dim=-1)
 
 
+def length(a):
+    return torch.sqrt(torch.clamp(dot(a, a), min=0.0))
+
+
 def normalize(a):
     return a * torch.rsqrt(torch.clamp(dot(a, a), min=1e-20))[..., None]
 
@@ -41,6 +48,40 @@ def sqrt0(x):
 def reflect(d, n):
     """Mirror reflection of direction d about normal n."""
     return d - 2.0 * dot(d, n)[..., None] * n
+
+
+def refract(d, n, eta):
+    """Refraction of d through normal n with relative IOR eta = n1/n2 (a
+    tensor). Returns (refracted_dir, tir_mask): on total internal
+    reflection the direction is the reflection and tir_mask is True."""
+    cos_i = -dot(d, n)
+    k = 1.0 - eta * eta * (1.0 - cos_i * cos_i)
+    tir = k < 0.0
+    t = (eta[..., None] * d
+         + (eta * cos_i - torch.sqrt(torch.clamp(k, min=0.0)))[..., None] * n)
+    r = reflect(d, n)
+    return torch.where(tir[..., None], r, normalize(t)), tir
+
+
+def fresnel_dielectric_exact(cos_theta_i, eta):
+    """Exact dielectric Fresnel (tools_shared.h:199-209). eta = n_i / n_t."""
+    cos_theta_i = torch.clamp(cos_theta_i, 0.0, 1.0)
+    sin_theta_t2 = eta * eta * (1.0 - cos_theta_i * cos_theta_i)
+    tir = sin_theta_t2 > 1.0
+    cos_theta_t = torch.sqrt(torch.clamp(1.0 - sin_theta_t2, min=0.0))
+    rs = ((eta * cos_theta_i - cos_theta_t)
+          / torch.clamp(eta * cos_theta_i + cos_theta_t, min=1e-20))
+    rp = ((eta * cos_theta_t - cos_theta_i)
+          / torch.clamp(eta * cos_theta_t + cos_theta_i, min=1e-20))
+    f = 0.5 * (rs * rs + rp * rp)
+    return torch.where(tir, 1.0, f)
+
+
+def schlick_fresnel(cos_theta, n1, n2):
+    """Schlick's approximation (sharedBSDFs/lambert.h:79-84)."""
+    r0 = ((n1 - n2) / (n1 + n2)) ** 2
+    c = 1.0 - cos_theta
+    return r0 + (1.0 - r0) * c * c * c * c * c
 
 
 def onb(n):
@@ -76,6 +117,11 @@ def tangent_to_world(v, n):
     return v[..., 0:1] * t + v[..., 1:2] * b + v[..., 2:3] * n
 
 
+def world_to_tangent(v, n):
+    t, b = onb(n)
+    return torch.stack([dot(v, t), dot(v, b), dot(v, n)], dim=-1)
+
+
 def safe_origin(o, r, n, geo_epsilon):
     """Offset origin o along ray r / normal n blended by parallel-ness^2
     (tools_shared.h:279-293)."""
@@ -96,6 +142,25 @@ def consistent_normal(d, n, alpha):
         q * (1.0 + g) / torch.clamp(1.0 + b, min=1e-6), min=1e-12))
     r = (g + rho * b)[..., None] * n - rho[..., None] * (-d)
     return normalize(-d + r)
+
+
+def intersect_tri(o, d, v0, e1, e2, t_min=EPSILON, t_max=BIG_T):
+    """Broadcast Moller-Trumbore on [..., 3] rays o, d and triangles v0,
+    e1, e2 (v0 and edges). Returns (t, u, v, hit), t = BIG_T where there is
+    no hit."""
+    h = cross(d, e2)
+    a = dot(e1, h)
+    # two-sided test, reject near-parallel
+    valid = torch.abs(a) > 1e-9
+    f = 1.0 / torch.where(valid, a, 1.0)
+    s = o - v0
+    u = f * dot(s, h)
+    q = cross(s, e1)
+    v = f * dot(d, q)
+    t = f * dot(e2, q)
+    hit = valid & (u >= 0.0) & (u <= 1.0) & (v >= 0.0) & (u + v <= 1.0)
+    hit = hit & (t > t_min) & (t < t_max)
+    return torch.where(hit, t, BIG_T), u, v, hit
 
 
 def mt_comp(ox, oy, oz, dx, dy, dz,
@@ -138,6 +203,28 @@ def _chunks(v0, e1, e2, chunk):
                   for k in range(3)]
 
 
+def intersect_aabb(o, inv_d, bmin, bmax, t_max):
+    """Slab test (bvh.cpp:7-42) of [..., 3] rays against boxes. inv_d =
+    1/d. Returns (t_near, hit)."""
+    t0 = (bmin - o) * inv_d
+    t1 = (bmax - o) * inv_d
+    tsm = torch.minimum(t0, t1)
+    tbg = torch.maximum(t0, t1)
+    t_near = tsm.amax(dim=-1)
+    t_far = tbg.amin(dim=-1)
+    hit = (t_far >= torch.clamp(t_near, min=0.0)) & (t_near < t_max)
+    return t_near, hit
+
+
+def per_lane(x, n: int, device, dtype=torch.float32):
+    """x, a tensor or a Python number, as an [n] tensor on `device`. A
+    number is filled on the device (torch.full), not copied from the host:
+    a host-to-device copy of a fresh CPU tensor synchronises the stream."""
+    if isinstance(x, torch.Tensor):
+        return torch.broadcast_to(x.to(device=device, dtype=dtype), (n,))
+    return torch.full((n,), x, dtype=dtype, device=device)
+
+
 def _rays(o, d):
     """The 6 component columns [N, 1] of o and d."""
     return [x[:, k:k + 1] for x in (o, d) for k in range(3)]
@@ -150,8 +237,7 @@ def intersect_bruteforce(o, d, v0, e1, e2, t_max=BIG_T, chunk=1024):
     int32 (-1 on a miss, then t = BIG_T), u [N], v [N])."""
     n = o.shape[0]
     rays = _rays(o, d)
-    t_max = torch.broadcast_to(torch.as_tensor(t_max, dtype=o.dtype,
-                                               device=o.device), (n,))
+    t_max = per_lane(t_max, n, o.device, o.dtype)
     bt = torch.full((n,), BIG_T, dtype=o.dtype, device=o.device)
     bp = torch.full((n,), -1, dtype=torch.int32, device=o.device)
     bu = torch.zeros_like(bt)
@@ -176,9 +262,17 @@ def occluded_bruteforce(o, d, t_max, v0, e1, e2, chunk=1024):
     triangle is hit with EPSILON < t < t_max (a scalar or [N])."""
     n = o.shape[0]
     rays = _rays(o, d)
-    t_max = torch.broadcast_to(torch.as_tensor(t_max, dtype=o.dtype,
-                                               device=o.device), (n,))
+    t_max = per_lane(t_max, n, o.device, o.dtype)
     occ = torch.zeros(n, dtype=torch.bool, device=o.device)
     for _, tri in _chunks(v0, e1, e2, chunk):
         occ = occ | mt_comp(*rays, *tri, EPSILON, t_max[:, None])[3].any(1)
     return occ
+
+
+def transform_point(m, p):
+    """Apply 4x4 matrices [..., 4, 4] to points [..., 3]."""
+    return (m[..., :3, :3] @ p[..., None])[..., 0] + m[..., :3, 3]
+
+
+def transform_vector(m, v):
+    return (m[..., :3, :3] @ v[..., None])[..., 0]

@@ -46,8 +46,9 @@ def random_uint(seed):
 def random_float(seed: torch.Tensor):
     """(new_seed, float32 in [0,1)) — reference RandomFloat."""
     seed, v = random_uint(seed)
-    return seed, v.to(torch.float32) * torch.tensor(
-        _INV_2_32, dtype=torch.float32, device=v.device)
+    # a Python scalar operand: no host-to-device copy (which would
+    # synchronise the stream); the product is still float32 * float32
+    return seed, v.to(torch.float32) * _INV_2_32
 
 
 def path_seed(path_idx, r0):

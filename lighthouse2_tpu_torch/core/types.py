@@ -1,9 +1,11 @@
 """Render configuration and the camera frustum.
 
-Counterpart of lighthouse2_tpu/core/types.py (RenderConfig, ViewPyramid).
-Differences: RenderConfig has no `dtype` field (the port computes in
-float32 throughout), and ViewPyramid is a plain dataclass of tensors instead
-of a flax pytree.
+Counterpart of lighthouse2_tpu/core/types.py (RenderConfig, ViewPyramid,
+Rays, Hits, CoreStats). Differences: RenderConfig has no `dtype` field (the
+port computes in float32 throughout), and ViewPyramid, Rays, Hits and
+CoreStats are plain dataclasses of tensors instead of flax pytrees. Like
+JAX's, the executors pass rays and hits as tensors and dicts, not as Rays
+and Hits.
 """
 from __future__ import annotations
 
@@ -78,3 +80,36 @@ class ViewPyramid:
     image_plane: torch.Tensor
     focal_distance: torch.Tensor
     distortion: torch.Tensor
+
+
+@dataclasses.dataclass
+class Rays:
+    """A wavefront of rays, SoA (core_settings.h:78-86 path-state analog)."""
+    origin: torch.Tensor   # [N,3]
+    dir: torch.Tensor      # [N,3]
+
+
+@dataclasses.dataclass
+class Hits:
+    """Intersection results (core_settings.h:91 hitData analog)."""
+    t: torch.Tensor        # [N], BIG_T on a miss
+    prim: torch.Tensor     # [N] int32 global triangle id, -1 on a miss
+    inst: torch.Tensor     # [N] int32 instance id, -1 on a miss
+    u: torch.Tensor        # [N] barycentric u
+    v: torch.Tensor        # [N] barycentric v
+
+
+@dataclasses.dataclass
+class CoreStats:
+    """Per-frame device-side statistics (core_api_base.h:30-61 analog): ray
+    counts as int32 device scalars."""
+    primary_rays: torch.Tensor
+    bounce1_rays: torch.Tensor
+    deep_rays: torch.Tensor
+    shadow_rays: torch.Tensor
+
+    @staticmethod
+    def zero(device=None) -> "CoreStats":
+        from lighthouse2_tpu_torch.device import resolve_device
+        z = torch.zeros((), dtype=torch.int32, device=resolve_device(device))
+        return CoreStats(z, z, z, z)

@@ -1,16 +1,17 @@
 """Differentiable rendering entry points and the inverse-rendering loop.
 
-Counterpart of lighthouse2_tpu/diff/render.py (render_image, make_loss,
-save_checkpoint, load_checkpoint, optimize) and of the regen fwd+bwd step
+Counterpart of lighthouse2_tpu/diff/render.py (render_image,
+render_image_jit, make_loss, save_checkpoint, load_checkpoint, optimize)
+and of the regen fwd+bwd step
 that bench.py:82-112 defines inside run_workload (`fb_pass`), here as
 regen_value_and_grad.
 
 Differences from the JAX package:
   - parameters are a tensor or a dict of tensors; gradients come from
     torch.autograd and optimize steps torch.optim.Adam, set to optax.adam's
-    defaults (b1 0.9, b2 0.999, eps 1e-8 outside the square root); it takes
-    no other optimizer (the JAX package's `optimizer` argument has no
-    caller);
+    defaults (b1 0.9, b2 0.999, eps 1e-8 outside the square root); its
+    `optimizer`, where JAX takes an optax transformation, is a factory
+    optimizer(leaves) -> torch.optim.Optimizer;
   - the checkpoint holds the optimizer's state_dict with its tensors as
     numpy arrays, where the JAX package pickles the optax state's leaves;
   - no jit: each call runs the executors eagerly.
@@ -40,9 +41,16 @@ def render_image(scene: DeviceScene, view: ViewPyramid, config: RenderConfig,
     [W*H, 3]. Differentiable with respect to the scene's tensors;
     deterministic in sample_base."""
     _check_config(config)
-    acc, _, _ = trace_paths(scene, view, config, sample_base,
+    acc, _, _ = trace_paths(scene, view, config, None, sample_base,
                             rng_mod.CAM_RNG_SEED)
     return acc[:, :3] / config.spp_per_pass
+
+
+def render_image_jit(scene: DeviceScene, view: ViewPyramid,
+                     config: RenderConfig, sample_base: int = 0):
+    """render_image (JAX :33 jit-compiles it with config static; here the
+    same code, eagerly, and differentiable like it)."""
+    return render_image(scene, view, config, sample_base)
 
 
 def make_loss(target, view, config: RenderConfig, insert, scene: DeviceScene,
@@ -141,12 +149,13 @@ def load_checkpoint(path: str):
 
 
 def optimize(loss_fn, params, steps: int = 32, lr: float = 5e-2,
-             sample_stride: int = 0, verbose: bool = False,
+             optimizer=None, sample_stride: int = 0, verbose: bool = False,
              checkpoint_path: str | None = None, checkpoint_every: int = 8):
     """Adam loop for inverse rendering; params is a tensor or a dict of
-    tensors. With sample_stride > 0, loss_fn takes (params, step) and is
-    called with step = i * sample_stride to decorrelate the Monte Carlo
-    noise across steps.
+    tensors. optimizer(leaves) -> torch.optim.Optimizer replaces the Adam
+    of optax.adam(lr)'s defaults. With sample_stride > 0, loss_fn takes
+    (params, step) and is called with step = i * sample_stride to
+    decorrelate the Monte Carlo noise across steps.
 
     checkpoint_path: resume from it if present, and save (params,
     optimizer state, step, history) every `checkpoint_every` steps and at
@@ -158,7 +167,8 @@ def optimize(loss_fn, params, steps: int = 32, lr: float = 5e-2,
         params, start, history = ck["params"], ck["step"], ck["history"]
     leaves = [x.detach().to(device).clone().requires_grad_()
               for x in _leaves(params)]
-    opt = torch.optim.Adam(leaves, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    opt = (optimizer(leaves) if optimizer is not None else
+           torch.optim.Adam(leaves, lr=lr, betas=(0.9, 0.999), eps=1e-8))
     if ck is not None:
         opt.load_state_dict(ck["opt_state"])
 

@@ -80,6 +80,16 @@ def load(compiler: str = CXX) -> ctypes.CDLL:
     return lib
 
 
+def available(compiler: str = CXX) -> bool:
+    """Whether the native builder builds and loads here (the port uses it
+    for no fallback: build_sah_bvh still raises when it cannot)."""
+    try:
+        load(compiler)
+    except RuntimeError:
+        return False
+    return True
+
+
 def build_sah_bvh_native(v0, v1, v2, max_leaf: int = 4, bins: int = 8,
                          compiler: str = CXX) -> dict:
     """The native twin of bvh/builder.py build_sah_bvh_numpy: the same flat

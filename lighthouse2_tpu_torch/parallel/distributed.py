@@ -7,8 +7,11 @@ Differences from the JAX package:
   - init_distributed wraps torch.distributed.init_process_group and
     follows torchrun's launcher contract (MASTER_ADDR / MASTER_PORT, RANK,
     WORLD_SIZE, LOCAL_RANK through "env://") where JAX follows its own
-    coordinator contract; arguments given by the caller win. NCCL for the
-    card, gloo for device="cpu";
+    coordinator contract; arguments given by the caller win, under JAX's
+    names: coordinator_address "host:port" (JAX's form, taken as
+    tcp://host:port) or any torch.distributed init URL (tcp://, file://,
+    env://), num_processes, process_id. NCCL for the card, gloo for
+    device="cpu";
   - measure_scaling's meshes over the first nd ranks are torch.distributed
     subgroups (new_group); each row's wall time is the slowest member's,
     and every rank returns rank 0's rows;
@@ -33,8 +36,9 @@ from lighthouse2_tpu_torch.parallel.mesh import (
 from lighthouse2_tpu_torch.render.wavefront import AccumState
 
 
-def init_distributed(init_method: str | None = None,
-                     world_size: int | None = None, rank: int | None = None,
+def init_distributed(coordinator_address: str | None = None,
+                     num_processes: int | None = None,
+                     process_id: int | None = None,
                      backend: str | None = None, device=None) -> int:
     """Start the process group, or do nothing for one process without an
     address. The address, world size and rank default to torchrun's
@@ -44,6 +48,10 @@ def init_distributed(init_method: str | None = None,
     the world size."""
     if dist.is_initialized():
         return dist.get_world_size()
+    init_method, world_size, rank = (coordinator_address, num_processes,
+                                     process_id)
+    if init_method is not None and "://" not in init_method:
+        init_method = f"tcp://{init_method}"
     env = os.environ
     if init_method is None and "MASTER_ADDR" in env:
         init_method = "env://"
@@ -68,9 +76,9 @@ def init_distributed(init_method: str | None = None,
     return dist.get_world_size()
 
 
-def global_mesh() -> Mesh:
+def global_mesh(axis: str = "rays") -> Mesh:
     """The mesh over every rank of the process group."""
-    return make_mesh(None)
+    return make_mesh(None, axis=axis)
 
 
 def _sync(device: torch.device):

@@ -16,7 +16,8 @@ Differences from the JAX package:
   - a Mesh is a handle on a torch.distributed process group (the first
     `size` ranks) and this process's rank and device, where JAX's is a
     device array; without a process group it is a one-rank mesh and the
-    sums are the identity;
+    sums are the identity. Its one axis is named as JAX's (`axis`, "rays"
+    by default), and the passes raise ValueError for another name;
   - render_pass_sharded raises ValueError where JAX asserts (path_regen,
     n_paths not divisible by the mesh size);
   - the accumulator's all-reduce passes the gradient through unchanged in
@@ -25,8 +26,8 @@ Differences from the JAX package:
     gradients with one all_reduce (shard_map's implicit sum); a plain
     differentiable all_reduce would all-reduce the gradient again and
     scale it by the world size;
-  - train_step_sharded takes no param_extract (JAX's signature has one;
-    the port's step reads the parameters it is given);
+  - train_step_sharded takes param_extract and, as JAX's does, never
+    calls it (the step differentiates the parameters it is given);
   - make_mesh2d's Mesh2D holds one torch.distributed subgroup per axis
     for this rank: its row of the mesh (the "scene" axis) and its column
     (the "rays" axis). Without a process group it is a 1x1 mesh whose
@@ -54,9 +55,15 @@ class Mesh:
     rank: int
     group: object
     device: torch.device
+    axis: str = "rays"
+
+    def check_axis(self, axis: str) -> None:
+        if axis != self.axis:
+            raise ValueError(f"the mesh's axis is {self.axis!r}, not {axis!r}")
 
 
-def make_mesh(n_devices: int | None = None, device=None) -> Mesh:
+def make_mesh(n_devices: int | None = None, axis: str = "rays", *,
+              device=None) -> Mesh:
     """A mesh over the first n_devices ranks (all by default). With a
     process group every rank must call it (new_group is collective). The
     device defaults to the CPU under gloo and to this rank's card under
@@ -65,7 +72,7 @@ def make_mesh(n_devices: int | None = None, device=None) -> Mesh:
         if n_devices not in (None, 1):
             raise ValueError(f"{n_devices} devices need a process group "
                              "(distributed.init_distributed)")
-        return Mesh(1, 0, None, resolve_device(device))
+        return Mesh(1, 0, None, resolve_device(device), axis)
     world = dist.get_world_size()
     n = world if n_devices is None else n_devices
     if not 1 <= n <= world:
@@ -75,7 +82,8 @@ def make_mesh(n_devices: int | None = None, device=None) -> Mesh:
         device = ("cpu" if dist.get_backend() == "gloo"
                   else torch.device("cuda", torch.cuda.current_device()))
     rank = dist.get_rank()
-    return Mesh(n, rank if rank < n else -1, group, resolve_device(device))
+    return Mesh(n, rank if rank < n else -1, group, resolve_device(device),
+                axis)
 
 
 def _to(obj, device):
@@ -249,18 +257,19 @@ def local_pass(scene, view, state: AccumState, config: RenderConfig,
     dev = state.accumulator.device
     path_idx = torch.arange(mesh.rank * block, (mesh.rank + 1) * block,
                             dtype=torch.int64, device=dev)
-    acc, cam_seed, stats = trace_paths(scene, view, config, state.sample_count,
-                                       state.cam_seed, path_idx=path_idx)
+    acc, cam_seed, stats = trace_paths(scene, view, config, path_idx,
+                                       state.sample_count, state.cam_seed)
     flat = torch.cat([stats[k].reshape(-1).to(dev) for k in _STAT_KEYS])
     return acc, flat, cam_seed
 
 
 def render_pass_sharded(scene, view, state: AccumState, config: RenderConfig,
-                        mesh: Mesh):
+                        mesh: Mesh, axis: str = "rays"):
     """One progressive pass with the path range split over the mesh: rank k
     traces its block (local_pass); the accumulator and every stat are summed
     over the ranks, the stats in one all_reduce. Returns (new AccumState,
-    stats), the same on every rank."""
+    stats), the same on every rank. `axis` names the mesh's axis."""
+    mesh.check_axis(axis)
     acc, flat, cam_seed = local_pass(scene, view, state, config, mesh)
     acc = _sum_over_ranks(acc, mesh)
     flat = _sum_over_ranks(flat, mesh)
@@ -270,25 +279,29 @@ def render_pass_sharded(scene, view, state: AccumState, config: RenderConfig,
         cam_seed=cam_seed), unflatten_stats(flat, config.max_path_length)
 
 
-def render_image_sharded(scene, view, config: RenderConfig, mesh: Mesh):
+def render_image_sharded(scene, view, config: RenderConfig, mesh: Mesh,
+                         axis: str = "rays"):
     """One sharded pass from scratch -> the linear image [W*H, 3]."""
     state, _ = render_pass_sharded(
-        scene, view, AccumState.make(config, mesh.device), config, mesh)
+        scene, view, AccumState.make(config, mesh.device), config, mesh, axis)
     return state.accumulator[:, :3] / float(max(state.sample_count, 1))
 
 
 def train_step_sharded(scene, view, target, config: RenderConfig, mesh: Mesh,
-                       param_insert, params):
+                       param_extract, param_insert, params,
+                       axis: str = "rays"):
     """One differentiable-rendering step over the mesh: the mean squared
     error of the sharded image against `target`, and its gradient with
     respect to `params` (a tensor or a dict of tensors), summed over the
-    ranks. param_insert(scene, params) -> scene. Returns (loss, grads) on
-    every rank."""
+    ranks. param_insert(scene, params) -> scene; param_extract(scene) ->
+    params is not called (nor is it in JAX). Returns (loss, grads) on every
+    rank."""
     names = sorted(params) if isinstance(params, dict) else None
     leaves = ([params[k] for k in names] if names is not None else [params])
     leaves = [p.detach().requires_grad_() for p in leaves]
     p = dict(zip(names, leaves)) if names is not None else leaves[0]
-    img = render_image_sharded(param_insert(scene, p), view, config, mesh)
+    img = render_image_sharded(param_insert(scene, p), view, config, mesh,
+                               axis)
     loss = torch.mean((img - target) ** 2)
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     # all_reduce takes contiguous tensors only

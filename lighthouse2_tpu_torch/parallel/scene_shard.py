@@ -155,7 +155,7 @@ def _shard_flat(v0, e1, e2):
                     nmax=np.zeros((1, 3), np.float32),
                     left=np.zeros(1, np.int32), right=np.full(1, -1, np.int32),
                     count=np.ones(1, np.int32), prim=np.zeros(1, np.int32))
-    return build_sah_bvh(v0, v0 + e1, v0 + e2, native=False)
+    return build_sah_bvh(v0, v0 + e1, v0 + e2, prefer_native=False)
 
 
 def build_shard_bvh(tris, k: int, shard: int, device=None) -> DeviceBVH:
@@ -201,7 +201,7 @@ def build_shard_cluster_bvh(sh: dict, device=None) -> CL.ClusterBVH:
                ltri=host["ltri"].astype(np.int32),
                lod=host["lod"].astype(np.float32), tangent=host["tangent"],
                bitangent=host["bitangent"])
-    cb = CL.cut_clusters(build_sah_bvh(v0, v1, v2, native=False), tri,
+    cb = CL.cut_clusters(build_sah_bvh(v0, v1, v2, prefer_native=False), tri,
                          device="cpu")
     pg = cb.pgeo.numpy().copy()
     valid = cb.prim.numpy() >= 0
@@ -429,8 +429,8 @@ def render_pass_scene_sharded(scene, view, state: AccumState,
             sh, tree, pack, mpack22, o, d, alive, mesh)
         occl = lambda o, d, tmax: _shard_occluded(tree, o, d, tmax, mesh)
     acc, cam_seed, stats = trace_paths(
-        scene_rep, view, config, state.sample_count, state.cam_seed,
-        path_idx=path_idx, intersect_fn=isect, occluded_fn=occl)
+        scene_rep, view, config, path_idx, state.sample_count,
+        state.cam_seed, intersect_fn=isect, occluded_fn=occl)
     acc = sum_over(acc, mesh, "rays")
     flat = sum_over(torch.cat([stats[k].reshape(-1).to(dev)
                                for k in _STAT_KEYS]), mesh, "rays")

@@ -2,8 +2,10 @@
 
 Counterpart of lighthouse2_tpu/render/bdpt.py (_remap0, _f_pdf, _to_area,
 _walk, _eye_ratio_chain, _light_ratio_chain, trace_paths_bdpt,
-render_pass_bdpt). Both subpaths are lists of vertex batches, [N] lanes per
-vertex and at most LIGHT_DEPTH / EYE_DEPTH vertices a side:
+render_pass_bdpt, render_pass_bdpt_jit; the last runs the same code,
+eagerly, where JAX jit-compiles it). Both subpaths are lists of vertex
+batches, [N] lanes per vertex and at most LIGHT_DEPTH / EYE_DEPTH vertices
+a side:
 
   1. the eye walk from generate_eye_rays and the light walk from
      lights.sample_emission, each a BSDF random walk that traces every
@@ -495,12 +497,12 @@ def trace_paths_bdpt(scene, view: ViewPyramid, config: RenderConfig,
     acc = acc + torch.nn.functional.pad(splat, (0, 1))
     cam_seed, _ = rng_mod.frame_r0(cam_seed, 1)
     n_conn_rays = torch.stack(n_conn).sum().to(torch.int32)
-    n_ext = torch.tensor(n_ext_rays, dtype=torch.int32, device=dev)
+    n_ext = torch.full((), n_ext_rays, dtype=torch.int32, device=dev)
     # per-bounce slots as in the other executors, the totals in slot 0
     rest = torch.zeros(config.max_path_length - 1, dtype=torch.int32,
                        device=dev)
     stats = dict(
-        primary_rays=torch.tensor(n, dtype=torch.int32, device=dev),
+        primary_rays=torch.full((), n, dtype=torch.int32, device=dev),
         extension_rays=torch.cat([n_ext[None], rest]),
         shadow_rays=torch.cat([n_conn_rays[None], rest]),
         total_extension=n_ext,
@@ -517,3 +519,9 @@ def render_pass_bdpt(scene, view, state: AccumState, config: RenderConfig):
         accumulator=state.accumulator + acc_delta,
         sample_count=state.sample_count + config.spp_per_pass,
         cam_seed=cam_seed), stats
+
+
+def render_pass_bdpt_jit(scene, view, state: AccumState, config: RenderConfig):
+    """render_pass_bdpt (JAX :590 jit-compiles it with config static; here
+    the same code, eagerly)."""
+    return render_pass_bdpt(scene, view, state, config)

@@ -20,7 +20,9 @@ jax.block_until_ready; MinimalCore's .at[idx].max is scatter_reduce "amax";
 PreviewCore traces through the port's _intersect (a closest-hit kernel on
 a card, one launch a render) and make_shading, with the cluster path's
 payload pack prepared per render as JAX's core does;
-FilteredWavefrontCore's stats add "pass_time" (render_pass) and
+WavefrontCore and FilteredWavefrontCore run render_pass_auto and BDPTCore
+render_pass_bdpt_jit, as JAX's do;
+FilteredWavefrontCore's stats add "pass_time" (render_pass_auto) and
 "filter_time" (SVGF + TAA + unsharpen), each closed by a synchronize, and
 the per-bounce ray counts as WavefrontCore's do; FilteredWavefrontCore has
 no `state` attribute (JAX's is never set), so its on_target_changed drops
@@ -40,7 +42,7 @@ from lighthouse2_tpu_torch.core.geometry import cross, dot
 from lighthouse2_tpu_torch.core.types import RenderConfig
 from lighthouse2_tpu_torch.render.cores.base import RenderCore, register_core
 from lighthouse2_tpu_torch.render.wavefront import (
-    AccumState, finalize, render_pass)
+    AccumState, finalize, render_pass_auto)
 
 
 def _sync(device: torch.device):
@@ -58,7 +60,7 @@ class WavefrontCore(RenderCore):
         self.state = None
 
     def _pass(self, device_scene, view):
-        return render_pass(device_scene, view, self.state, self.config)
+        return render_pass_auto(device_scene, view, self.state, self.config)
 
     def render(self, device_scene, view, converge: bool = True) -> dict:
         if self.state is None or not converge:
@@ -133,7 +135,8 @@ class FilteredWavefrontCore(RenderCore):
             view, _ = jittered_view(view, self.frame_idx, w, h)
         t0 = time.perf_counter()
         state = AccumState.make(self.config, dev)   # fresh every frame
-        state, stats = render_pass(device_scene, view, state, self.config)
+        state, stats = render_pass_auto(device_scene, view, state,
+                                        self.config)
         _sync(dev)
         t1 = time.perf_counter()
         aux = stats["filter_aux"]
@@ -188,8 +191,9 @@ class BDPTCore(WavefrontCore):
         super().__init__(config)
 
     def _pass(self, device_scene, view):
-        from lighthouse2_tpu_torch.render.bdpt import render_pass_bdpt
-        return render_pass_bdpt(device_scene, view, self.state, self.config)
+        from lighthouse2_tpu_torch.render.bdpt import render_pass_bdpt_jit
+        return render_pass_bdpt_jit(device_scene, view, self.state,
+                                    self.config)
 
 
 @register_core("primeref")

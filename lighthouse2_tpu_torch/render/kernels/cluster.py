@@ -68,6 +68,7 @@ import torch
 from lighthouse2_tpu_torch.bvh.clusters import (
     CLUSTER_LANES, PAY_MAT, PAY_MAT_ROWS, PAY_PRIM, PAY_ROWS, PAY_VALID,
     ClusterBVH)
+from lighthouse2_tpu_torch.core.geometry import per_lane
 from lighthouse2_tpu_torch.render.kernels.trace import (
     _check_rc, build_library)
 
@@ -551,17 +552,17 @@ cluster_closest.launches = 0
 cluster_occluded.launches = 0
 
 
-def bake_material_rows(cbvh: ClusterBVH, mpack):
+def bake_material_rows(cbvh: ClusterBVH, mpack22):
     """The material payload rows of every tile lane from the live material
     pack ([28, M], render/shading.py material_pack): [CT, PAY_MAT_ROWS, 128]
     f32, one triangle-count-sized gather a pass."""
     ct = cbvh.pgeo.shape[0]
     valid = cbvh.pgeo[:, PAY_VALID, :] > 0.0
     ids = torch.where(valid, cbvh.pgeo[:, PAY_MAT, :], 0.0).to(torch.int64)
-    rows = mpack[:, ids.reshape(-1)].reshape(mpack.shape[0], ct,
-                                             CLUSTER_LANES).transpose(0, 1)
+    rows = mpack22[:, ids.reshape(-1)].reshape(
+        mpack22.shape[0], ct, CLUSTER_LANES).transpose(0, 1)
     return torch.nn.functional.pad(rows, (0, 0, 0,
-                                          PAY_MAT_ROWS - mpack.shape[0]))
+                                          PAY_MAT_ROWS - mpack22.shape[0]))
 
 
 def _stretch3(b, nbits: int):
@@ -585,8 +586,7 @@ def ray_sort_perm(o, d, t_max, bvh: ClusterBVH, key: str = "dir"):
     morton (4 bits an axis), then the direction octant, for batches whose
     origins spread (shadow rays). Returns (perm, inv) int64 [N]."""
     o, d = o.detach(), d.detach()
-    t_max = torch.broadcast_to(torch.as_tensor(
-        t_max, dtype=torch.float32, device=o.device), (o.shape[0],))
+    t_max = per_lane(t_max, o.shape[0], o.device)
     bmin = bvh.boxes[0:3, 0]                     # root node box
     bmax = bvh.boxes[3:6, 0]
     extent = torch.clamp(bmax - bmin, min=1e-6)
@@ -638,8 +638,7 @@ def ray_tile(o, d, t_max, perm=None):
         raise ValueError(f"o and d must both be [N,3], got {tuple(o.shape)} "
                          f"and {tuple(d.shape)}")
     n = o.shape[0]
-    tmax = torch.broadcast_to(torch.as_tensor(
-        t_max, dtype=torch.float32, device=o.device).detach(), (n,))
+    tmax = per_lane(t_max, n, o.device).detach()
     x = torch.cat([o.T, d.T, torch.ones((1, n), dtype=torch.float32,
                                         device=o.device),
                    torch.clamp(tmax, max=BIG)[None]], 0)
@@ -650,7 +649,8 @@ def ray_tile(o, d, t_max, perm=None):
 
 
 def trace_cluster_bvh(o, d, bvh: ClusterBVH, t_max, anyhit: bool = False,
-                      paym=None, pay_tiles=None, perm=None, inv=None):
+                      paym=None, pay_tiles=None, interpret: bool = False,
+                      perm=None, inv=None, ablate: str = ""):
     """Closest hit (or any-hit) of rays o, d [N,3] against a ClusterBVH,
     through the kernels on a card and their plain versions on the CPU.
 
@@ -662,11 +662,16 @@ def trace_cluster_bvh(o, d, bvh: ClusterBVH, t_max, anyhit: bool = False,
     block's counters in rows 38 and 39; t is tmax on a miss. Any-hit:
     returns occluded bool [N]. `perm` / `inv` (ray_sort_perm) reorder the
     rays for the kernel and its outputs back. Takes no gradient; the
-    payload's gradients re-attach through render/fetch.py reattach_rows."""
+    payload's gradients re-attach through render/fetch.py reattach_rows.
+    `interpret` (JAX's Pallas interpret mode) changes nothing: CPU tensors
+    take the plain versions. `ablate`, JAX's switch that skips parts of its
+    kernel for time attribution, must be empty."""
+    if ablate:
+        raise ValueError(f"ablate={ablate!r}: the port's kernels have no "
+                         "ablation switches")
     n = o.shape[0]
     x = ray_tile(o, d, t_max, perm)
-    tmax = torch.clamp(torch.broadcast_to(torch.as_tensor(
-        t_max, dtype=torch.float32, device=o.device), (n,)), max=BIG)
+    tmax = torch.clamp(per_lane(t_max, n, o.device), max=BIG)
     if anyhit:
         occ = cluster_occluded(x, bvh)[:n]
         return occ[inv] if inv is not None else occ

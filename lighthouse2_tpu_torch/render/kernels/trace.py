@@ -30,6 +30,7 @@ import torch
 
 from lighthouse2_tpu_torch.bvh.traverse import DeviceBVH, check_depth
 from lighthouse2_tpu_torch.bvh.wide import wide_intersect, wide_occluded
+from lighthouse2_tpu_torch.core.geometry import per_lane
 
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
@@ -99,8 +100,7 @@ def _prepare(o, d, tmax, bvh: DeviceBVH):
         raise ValueError(f"o and d must both be [N,3], got {tuple(o.shape)} "
                          f"and {tuple(d.shape)}")
     n = o.shape[0]
-    tmax = torch.broadcast_to(torch.as_tensor(tmax, dtype=torch.float32,
-                                              device=o.device), (n,))
+    tmax = per_lane(tmax, n, o.device)
     tensors = dict(o=o, d=d, node4=bvh.node4, tri4=bvh.tri4)
     for name, t in tensors.items():
         if t.dtype != torch.float32:

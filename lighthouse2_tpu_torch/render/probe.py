@@ -79,11 +79,12 @@ def bvh_heatmap(scene, view, config) -> np.ndarray:
 def gbuffer_views(scene, view, config) -> np.ndarray:
     """The filter G-buffer debug mosaic [2H,2W,3]: albedo, shading normal,
     depth and world position (the F4 multi-view, finalize_shared.h:491-541)."""
-    from lighthouse2_tpu_torch.render.wavefront import AccumState, render_pass
+    from lighthouse2_tpu_torch.render.wavefront import (
+        AccumState, render_pass_jit)
     cfg = dataclasses.replace(config, filter_enabled=True, spp_per_pass=1,
                               path_regen=False)
-    _, stats = render_pass(scene, view, AccumState.make(cfg, scene.device),
-                           cfg)
+    _, stats = render_pass_jit(scene, view, AccumState.make(cfg, scene.device),
+                               cfg)
     aux = {k: v.cpu().numpy() for k, v in stats["filter_aux"].items()}
     h, w = cfg.height, cfg.width
     alb = aux["albedo"].reshape(h, w, 3)

@@ -23,10 +23,11 @@ Differences from the JAX package:
     as an int32 tensor (exact at any triangle count, where a float32 row is
     exact only below 2^24), and the material id and the valid flag have no
     reader once the material rows are in the payload;
-  - shading_from_payload takes that id as its `prim` argument on both
-    branches (the cluster path reads it from ClusterBVH.prim); the
-    material id of geom_reattach=True comes from the payload's PAY_MAT row
-    as in JAX. Its default is geom_reattach=False, JAX's is True;
+  - shading_from_payload takes that id as its keyword-only `prim`
+    argument on both branches (the cluster path reads it from
+    ClusterBVH.prim; without it the cluster layout's PAY_PRIM row is read,
+    as in JAX); the material id of geom_reattach=True comes from the
+    payload's PAY_MAT row as in JAX;
   - lanes without a hit take no gradient and get a unit area facing the
     ray on both branches: JAX's geom_reattach=True re-attaches their
     material rows to material 0 and computes an infinite light pdf from
@@ -165,12 +166,14 @@ def get_shading_data(scene: DeviceScene, d, t, prim, u, v, spread_angle,
                              tangent=_v3(g, 23), bitangent=_v3(g, 26))
 
 
-def shading_from_payload(scene: DeviceScene, d, t, prim, payload, u, v,
+def shading_from_payload(scene: DeviceScene, d, t, payload, u, v,
                          spread_angle, consistent_normals=True,
-                         geom_reattach=False) -> ShadingData:
+                         geom_reattach=True, *, prim=None) -> ShadingData:
     """GetShadingData from per-ray payload rows of the hit triangles (prim
-    >= 0 hits, the global triangle id). n_geom and the area come from
-    e1 x e2 (JAX shading.py:96-97), not from the host's face normal.
+    >= 0 hits, the global triangle id, int32 [N]; read from the payload's
+    PAY_PRIM row as in JAX when not given, which only the cluster layout
+    of geom_reattach=True has). n_geom and the area come from e1 x e2 (JAX
+    shading.py:96-97), not from the host's face normal.
 
     geom_reattach=True: `payload` is the cluster trace path's [72, N]
     (bvh/clusters.py PAY_*), which carries no gradient; the geometry,
@@ -178,6 +181,12 @@ def shading_from_payload(scene: DeviceScene, d, t, prim, payload, u, v,
     attributes, lod and material_pack (render/fetch.py). Otherwise the
     rows [PAY_ROWS, N] are used as they are, so their gradient flows back
     through whatever assembled them (scene sharding)."""
+    if prim is None:
+        if not geom_reattach:
+            raise ValueError("the scene-sharded payload has no PAY_PRIM "
+                             "row: pass prim=")
+        row = payload[CL.PAY_PRIM].detach()
+        prim = torch.where(row >= 0.0, row.to(torch.int32), -1)
     w = 1.0 - u - v
     if geom_reattach:
         return _shading_reattached(scene, d, t, prim, payload.detach(), u,

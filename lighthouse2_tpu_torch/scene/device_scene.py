@@ -13,6 +13,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from lighthouse2_tpu_torch.device import resolve_device
+
 
 @dataclasses.dataclass
 class DeviceTriangles:
@@ -154,7 +156,10 @@ class DeviceScene:
         return self.tris.v0.device
 
 
-def empty_textures(device, mips: int = 5) -> DeviceTextures:
+def empty_textures(mips: int = 5, *, device=None) -> DeviceTextures:
+    """The one-texel pool of a scene without textures, on `device`
+    (default: the card)."""
+    device = resolve_device(device)
     return DeviceTextures(
         pool=torch.zeros((4, 1), dtype=torch.float32, device=device),
         desc=torch.zeros((1, mips, 3), dtype=torch.int32, device=device))

@@ -329,7 +329,8 @@ class HostScene:
         entry = self._blas_cache.get(mesh_id)
         if entry is not None and entry[0] == fp and entry[1] == native:
             return entry[2]
-        blas = build_sah_bvh(posed.v0, posed.v1, posed.v2, native=native)
+        blas = build_sah_bvh(posed.v0, posed.v1, posed.v2,
+                             prefer_native=native)
         self._blas_cache[mesh_id] = (fp, native, blas)
         self.build_stats["blas_builds"] += 1
         return blas
@@ -383,7 +384,7 @@ class HostScene:
                 secs["compose"] += time.perf_counter() - t1
             else:
                 flat = build_sah_bvh(world["v0"], world["v1"], world["v2"],
-                                     native=native)
+                                     prefer_native=native)
                 secs["blas"] += time.perf_counter() - t1
         t2 = time.perf_counter()
 
@@ -443,7 +444,7 @@ class HostScene:
         w = a["world"]
         t0 = time.perf_counter()
         textures = (build_texture_pool(self.textures, dev) if self.textures
-                    else empty_textures(dev))
+                    else empty_textures(device=dev))
         t1 = time.perf_counter()
         packed = (pack_flat(a["bvh"], w["v0"], w["v1"], w["v2"])
                   if rebuild_bvh else None)

@@ -104,10 +104,13 @@ def _read_ppm(path):
     return np.frombuffer(tok[4][: w * h * ch], np.uint8).reshape(h, w, ch)
 
 
-def build_texture_pool(textures: list, device):
+def build_texture_pool(textures: list, device=None):
     """Pack all textures + MIPs into one flat component-major [4,P] pool with
-    [NTEX, MIPS, 3] (offset, width, height) descriptors."""
+    [NTEX, MIPS, 3] (offset, width, height) descriptors, on `device`
+    (default: the card)."""
+    from lighthouse2_tpu_torch.device import resolve_device
     from lighthouse2_tpu_torch.scene.device_scene import DeviceTextures
+    device = resolve_device(device)
     chunks = []
     desc = np.zeros((max(1, len(textures)), MIP_LEVELS, 3), np.int32)
     offset = 0

@@ -305,7 +305,7 @@ def capture_main_path(scene, view, cfg, dev):
     from lighthouse2_tpu_torch.render import wavefront as wf
     state = wf.AccumState.make(cfg, dev)
     for _ in range(2):
-        state, _ = wf.render_pass(scene, view, state, cfg)
+        state, _ = wf.render_pass_auto(scene, view, state, cfg)
     rec = {"closest": [], "occluded": []}
     orig = wf.trace_closest, wf.trace_occluded
 
@@ -320,7 +320,7 @@ def capture_main_path(scene, view, cfg, dev):
     wf.trace_closest = capturing("closest", orig[0])
     wf.trace_occluded = capturing("occluded", orig[1])
     try:
-        wf.render_pass(scene, view, state, cfg)
+        wf.render_pass_auto(scene, view, state, cfg)
     finally:
         wf.trace_closest, wf.trace_occluded = orig
     torch.cuda.synchronize()

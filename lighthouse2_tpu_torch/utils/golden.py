@@ -3,14 +3,19 @@
 
 Counterpart of lighthouse2_tpu/utils/golden.py: SIZE, PATHS, ANCHOR_MEAN,
 ANCHOR_STD (values copied), golden_config, golden_scene (its sky as
-golden_sky) and render_golden.
+golden_sky), render_golden and main.
 The anchor was made by the JAX package's CPU lockstep render; the port's
 render is held to its mean and population standard deviation within 1e-3.
-Differences: golden_config has no intersector or kernel_interpret argument
-(the port's "auto" takes the trace kernels on a card and their plain
-version on the CPU); render_golden takes a device; there is no
-ANCHOR_SHA256, which pins XLA's CPU reduction order, and no main() that
-regenerates the anchor (the JAX package owns it).
+Differences: the intersector defaults to "auto" (the port's "auto" takes
+the trace kernels on a card and their plain version on the CPU) and
+kernel_interpret, JAX's Pallas interpret mode, changes nothing in the
+port; render_golden takes a keyword-only device (default: the card) and
+returns the accumulator there; there is no ANCHOR_SHA256, which pins XLA's
+CPU reduction order; main() prints the port's own mean, population std
+and SHA-256 of the frame, for comparison with the anchor that the JAX
+package owns and regenerates.
+
+    python -m lighthouse2_tpu_torch.utils.golden [--device cpu]
 """
 from __future__ import annotations
 
@@ -23,12 +28,13 @@ ANCHOR_MEAN = 0.3503158390522003
 ANCHOR_STD = 0.4814316928386688
 
 
-def golden_config():
+def golden_config(intersector: str = "auto", interpret: bool = False):
     from lighthouse2_tpu_torch.core.types import RenderConfig
     # blue noise off: the anchor pins the white-noise sequence
     return RenderConfig(width=SIZE, height=SIZE, spp_per_pass=1,
                         max_path_length=PATHS, use_bvh=True, bsdf="disney",
-                        sky_ibl=True, blue_noise=False)
+                        sky_ibl=True, intersector=intersector,
+                        kernel_interpret=interpret, blue_noise=False)
 
 
 def golden_sky():
@@ -49,13 +55,36 @@ def golden_scene():
     return scene, cam
 
 
-def render_golden(device=None):
-    """One fixed-seed classic pass on `device` (default: the card) -> the
-    f32 accumulator [SIZE*SIZE, 3] as a tensor on that device."""
-    from lighthouse2_tpu_torch.render.wavefront import AccumState, render_pass
+def render_golden(intersector: str = "auto", interpret: bool = False, *,
+                  device=None):
+    """One fixed-seed classic pass (render_pass_jit, as JAX) on `device`
+    (default: the card) -> the f32 accumulator [SIZE*SIZE, 3] as a tensor
+    on that device."""
+    from lighthouse2_tpu_torch.render.wavefront import (
+        AccumState, render_pass_jit)
     scene, cam = golden_scene()
-    ds = scene.sync(device)
-    cfg = golden_config()
-    st, _ = render_pass(ds, cam.get_view(ds.device),
-                        AccumState.make(cfg, ds.device), cfg)
+    ds = scene.sync(device, clusters=intersector == "cluster")
+    cfg = golden_config(intersector, interpret)
+    st, _ = render_pass_jit(ds, cam.get_view(ds.device),
+                            AccumState.make(cfg, ds.device), cfg)
     return st.accumulator[:, :3]
+
+
+def main(argv=None):
+    """Print the frame's mean, population std and SHA-256 (float32 bytes)
+    beside the anchor, rendered on the card or with --device cpu."""
+    import argparse
+    import hashlib
+    ap = argparse.ArgumentParser(description=main.__doc__)
+    ap.add_argument("--device", default=None)
+    ap.add_argument("--intersector", default="auto")
+    args = ap.parse_args(argv)
+    a = render_golden(args.intersector, device=args.device).cpu().numpy()
+    print("MEAN =", repr(float(a.mean())), " ANCHOR_MEAN =", ANCHOR_MEAN)
+    print("STD =", repr(float(a.std())), " ANCHOR_STD =", ANCHOR_STD)
+    print('SHA256 = "%s"' % hashlib.sha256(
+        np.ascontiguousarray(a, np.float32).tobytes()).hexdigest())
+
+
+if __name__ == "__main__":
+    main()

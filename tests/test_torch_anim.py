@@ -28,7 +28,7 @@ from lighthouse2_tpu.utils.image import read_png as jax_read_png
 from lighthouse2_tpu_torch.apps import render_cli
 from lighthouse2_tpu_torch.core.types import RenderConfig
 from lighthouse2_tpu_torch.render.wavefront import (
-    AccumState, finalize, render_pass)
+    AccumState, finalize, render_pass_auto)
 from lighthouse2_tpu_torch.scene import host_anim as tanim
 from lighthouse2_tpu_torch.scene import presets as tpresets
 from lighthouse2_tpu_torch.scene.host_scene import HostScene as TScene
@@ -140,7 +140,8 @@ def test_animated_frame_two_level_equals_single_level(tmp_path):
     imgs = []
     for kw in (dict(), dict(two_level=False, native=False)):
         ds = host.sync("cpu", **kw)
-        state, _ = render_pass(ds, view, AccumState.make(cfg, "cpu"), cfg)
+        state, _ = render_pass_auto(ds, view, AccumState.make(cfg, "cpu"),
+                                    cfg)
         imgs.append(finalize(state))
     assert host.build_stats["tlas_composes"] == 1
     assert torch.isfinite(imgs[0]).all() and imgs[0].mean() > 0

@@ -1,6 +1,6 @@
 """The port's RenderAPI, render cores and tonemap.
 
-  - two RenderAPI.render() calls equal two render_pass calls by hand (the
+  - two RenderAPI.render() calls equal two render_pass_auto calls by hand (the
     accumulator bit for bit), moving the camera restarts the accumulation,
     get_ldr_image is finite and in [0, 1], the camera survives a JSON
     round trip, and a camera the JAX package wrote loads with every field;
@@ -57,7 +57,7 @@ def test_render_api_equals_render_pass_by_hand(tmp_path):
     ds, view = host.sync("cpu"), cam.get_view("cpu")
     state = twf.AccumState.make(cfg, "cpu")
     for _ in range(2):
-        state, _ = twf.render_pass(ds, view, state, cfg)
+        state, _ = twf.render_pass_auto(ds, view, state, cfg)
     assert api.core.state.sample_count == state.sample_count == 2
     torch.testing.assert_close(api.core.state.accumulator, state.accumulator,
                                rtol=0, atol=0)

@@ -1,17 +1,25 @@
 """The classic executor and the inverse-rendering loop of the port.
 
-  - render_pass with path_regen=False against the JAX package's
-    render_pass_jit with intersector="lockstep", two passes on the same
-    carried-across 16x16 Cornell box at path 4 with max_diffuse_bounces=2:
-    bounce 1 extends every hit, bounce 2 extends through Russian roulette,
-    bounce 3 ends every path (the diffuse budget is spent), so bounce 4 has
-    no live lane and takes the all-lanes-dead branch. Tolerances as in
-    test_torch_wavefront.py: >= 99% of pixels within rtol 1e-3 / atol 1e-4
-    (XLA and torch round transcendentals differently, and one flipped
-    roulette or BSDF decision changes a whole lane), the image mean within
-    1e-3 relative; cam_seed, which advances once per bounce, dead or not,
-    equal. The JAX side is compiled once, at XLA's backend optimisation
-    level 0 (same arithmetic, a shorter compile);
+  - each form of the classic pass (render_pass and render_pass_jit, also
+    with path_regen=True, which neither reads as in JAX; render_pass_staged,
+    render_pass_unrolled and render_pass_auto) against the JAX package's
+    render_pass_jit with intersector="lockstep" (the staged form against
+    JAX's render_pass_staged), two passes on the same carried-across 16x16
+    Cornell box at path 4 with max_diffuse_bounces=2: bounce 1 extends
+    every hit, bounce 2 extends through Russian roulette, bounce 3 ends
+    every path (the diffuse budget is spent), so bounce 4 has no live lane:
+    render_pass skips it, the staged and unrolled forms run it on dead
+    lanes. Tolerances as in test_torch_wavefront.py: >= 99% of pixels
+    within rtol 1e-3 / atol 1e-4 (XLA and torch round transcendentals
+    differently, and one flipped roulette or BSDF decision changes a whole
+    lane), the image mean within 1e-3 relative; cam_seed, which advances
+    once per bounce, dead or not, equal. Against the port's own render_pass
+    every form is equal bit for bit, stats included: the forms compute the
+    same sums in the same order, and a dead bounce adds exact zeros. JAX's
+    render_pass_jit is compiled once, at XLA's backend optimisation level
+    0 (same arithmetic, a shorter compile); its render_pass_staged, which
+    no other test reaches, at the default level (its stages are jits of
+    their own: ~22 s on one core, cold);
   - optimize with torch.optim.Adam against optax.adam over 3 steps on a
     fixed quadratic. Tolerance rtol 1e-5 and, on the parameters, atol 1e-5:
     optax forms the bias corrections 1 - b^t in float32 (1 - 0.999 rounds
@@ -22,6 +30,8 @@
   - a run cut short and resumed from its checkpoint gives the history and
     parameters of the uncut run.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -50,6 +60,14 @@ FAST_COMPILE = {"xla_backend_optimization_level": 0,
                 "xla_llvm_disable_expensive_passes": True}
 
 
+def _two_passes(fn, *args):
+    state, stats = args[2], []
+    for _ in range(2):
+        state, st = fn(*args[:2], state, args[3])
+        stats.append(st)
+    return state, stats
+
+
 @pytest.fixture(scope="module")
 def classic_passes():
     with pytest.MonkeyPatch.context() as mp:
@@ -62,24 +80,53 @@ def classic_passes():
     jstate = jwf.AccumState.make(jcfg)
     step = jwf.render_pass_jit.lower(jds, jview, jstate, config=jcfg).compile(
         compiler_options=FAST_COMPILE)
-    jstats = []
-    for _ in range(2):
-        jstate, st = step(jds, jview, jstate)
-        jstats.append(st)
+    jstate, jstats = _two_passes(lambda s, v, st, _: step(s, v, st), jds,
+                                 jview, jstate, None)
     tds, tview = scene_from_numpy(jax_scene_arrays(jds, jview), "cpu")
-    return dict(jstate=jstate, jstats=jstats, tds=tds, tview=tview)
-
-
-def test_classic_pass_matches_jax_lockstep(classic_passes):
-    c = classic_passes
     cfg = RenderConfig(width=SIZE, height=SIZE, max_path_length=PATH,
-                       max_diffuse_bounces=DIFFUSE, path_regen=False)
-    state = twf.AccumState.make(cfg, "cpu")
-    stats = []
-    for _ in range(2):
-        state, st = twf.render_pass(c["tds"], c["tview"], state, cfg)
-        stats.append(st)
-    js = c["jstate"]
+                       max_diffuse_bounces=DIFFUSE)
+    # the port's own render_pass: every form is held to it bit for bit
+    ref = _two_passes(twf.render_pass, tds, tview,
+                      twf.AccumState.make(cfg, "cpu"), cfg)
+    return dict(jstate=jstate, jstats=jstats, jds=jds, jview=jview,
+                jcfg=jcfg, tds=tds, tview=tview, cfg=cfg, ref=ref)
+
+
+@pytest.fixture(scope="module")
+def jax_staged(classic_passes):
+    c = classic_passes
+    return _two_passes(jwf.render_pass_staged, c["jds"], c["jview"],
+                       jwf.AccumState.make(c["jcfg"]), c["jcfg"])
+
+
+# (port form, path_regen): JAX's render_pass / render_pass_jit never read
+# path_regen (only render_pass_auto routes to the regen executor), so their
+# result is the classic one for either value
+CLASSIC_FORMS = [("render_pass", False), ("render_pass", True),
+                 ("render_pass_jit", False), ("render_pass_jit", True),
+                 ("render_pass_staged", False),
+                 ("render_pass_unrolled", False), ("render_pass_auto", False)]
+
+
+@pytest.mark.parametrize("form,regen", CLASSIC_FORMS,
+                         ids=[f"{f}-regen" if r else f
+                              for f, r in CLASSIC_FORMS])
+def test_classic_pass_matches_jax_lockstep(classic_passes, request, form,
+                                           regen):
+    c = classic_passes
+    cfg = dataclasses.replace(c["cfg"], path_regen=regen)
+    state, stats = _two_passes(getattr(twf, form), c["tds"], c["tview"],
+                               twf.AccumState.make(cfg, "cpu"), cfg)
+    ref_state, ref_stats = c["ref"]
+    assert torch.equal(state.accumulator, ref_state.accumulator)
+    for t, r in zip(stats, ref_stats):
+        assert sorted(t) == sorted(r)
+        for k in t:
+            assert torch.equal(t[k], r[k]), k
+    if form == "render_pass_staged":
+        js, jstats = request.getfixturevalue("jax_staged")
+    else:
+        js, jstats = c["jstate"], c["jstats"]
     assert state.sample_count == int(js.sample_count) == 2
     assert state.pool is None and state.pixel_count is None
     assert state.cam_seed == int(js.cam_seed)
@@ -93,7 +140,7 @@ def test_classic_pass_matches_jax_lockstep(classic_passes):
     assert abs(ti.mean() - ji.mean()) <= MEAN_RTOL * abs(ji.mean())
 
     n_diff = int((~close).sum())
-    for t, j in zip(stats, c["jstats"]):
+    for t, j in zip(stats, jstats):
         te, je = t["extension_rays"].numpy(), np.asarray(j["extension_rays"])
         assert te[0] == je[0] == SIZE * SIZE
         assert np.abs(te - je).max() <= n_diff

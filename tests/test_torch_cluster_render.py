@@ -188,8 +188,8 @@ def test_scene_sharded_cluster_pass_single_rank_gloo(tmp_path, monkeypatch):
     np.testing.assert_array_equal(          # the tiles hold the pack's rows
         cb.pgeo[:, :27].permute(1, 0, 2)[:, valid].numpy(),
         pack[:27, cb.prim[valid].long()].numpy())
-    init_distributed(f"file://{tmp_path}/store", world_size=1, rank=0,
-                     device="cpu")
+    init_distributed(f"file://{tmp_path}/store", num_processes=1,
+                     process_id=0, device="cpu")
     try:
         mesh = make_mesh2d(1, 1, device="cpu")
         assert mesh.groups["scene"] is not None     # collectives run

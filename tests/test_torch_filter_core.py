@@ -13,7 +13,7 @@ argument, so the same executable renders every frame below.
     equals the filter-on direct accumulator + indirect on every pixel
     (rtol 1e-5 / atol 1e-6: the two streams are summed apart, then added),
     depth channel, cam_seed and ray counts equal; filter_enabled with
-    path_regen raises ValueError;
+    path_regen raises ValueError in render_pass_auto (the regen executor);
   - three frames of create_core("wavefront_filter") with TAA and a moving
     camera against JAX's svgf_filter / taa / unsharpen applied to the
     compiled pass's aux, as JAX's FilteredWavefrontCore.render does:
@@ -129,7 +129,8 @@ def test_filter_off_equals_direct_plus_indirect():
         assert torch.equal(st_on[k], st_off[k])
     regen = dataclasses.replace(on, path_regen=True)
     with pytest.raises(ValueError, match="path_regen"):
-        twf.render_pass(ds, view, twf.AccumState.make(regen, "cpu"), regen)
+        twf.render_pass_auto(ds, view, twf.AccumState.make(regen, "cpu"),
+                             regen)
 
 
 def test_filtered_core_frames_match_jax(filter_pass):

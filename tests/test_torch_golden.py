@@ -1,10 +1,10 @@
 """The golden frame and the Disney + sky IBL path of the port's renderer.
 
   - the port's golden constants equal lighthouse2_tpu.utils.golden's;
-  - render_golden("cpu"): the golden bathroom (Disney, textures, IBL on the
-    16x32 gradient sky, 64x64, path 3, classic, white noise) has mean and
-    population standard deviation within 1e-3 of ANCHOR_MEAN / ANCHOR_STD,
-    the JAX package's CPU lockstep anchor;
+  - render_golden(device="cpu"): the golden bathroom (Disney, textures,
+    IBL on the 16x32 gradient sky, 64x64, path 3, classic, white noise)
+    has mean and population standard deviation within 1e-3 of
+    ANCHOR_MEAN / ANCHOR_STD, the JAX package's CPU lockstep anchor;
   - regen with remat, Disney and IBL, fwd+bwd on a 16x16 Cornell box with
     test_sky, path 2, the port alone: the gradients of the material
     colours, the light radiance and the sky pixels are finite, nonzero and
@@ -58,7 +58,7 @@ def test_golden_constants_equal_jax():
 
 
 def test_render_golden_on_the_cpu_hits_the_anchor():
-    a = tgolden.render_golden("cpu")
+    a = tgolden.render_golden(device="cpu")
     assert a.shape == (tgolden.SIZE * tgolden.SIZE, 3)
     assert a.dtype == torch.float32 and torch.isfinite(a).all()
     assert abs(a.mean().item() - tgolden.ANCHOR_MEAN) < ANCHOR_TOL

@@ -96,7 +96,8 @@ def _rank_main(rank: int, store: str, out: str):
             ds, view, AccumState.make(cfg, "cpu"), cfg, mesh)
         target = torch.zeros((SIZE * SIZE, 3))
         loss, grad = train_step_sharded(ds, view, target, cfg, mesh,
-                                        _insert, ds.materials.color)
+                                        lambda s: s.materials.color, _insert,
+                                        ds.materials.color)
         odd = dataclasses.replace(cfg, width=3, height=3)
         res = dict(
             accumulator=state.accumulator, sample_count=state.sample_count,

@@ -171,7 +171,7 @@ def test_no_bvh_render_equals_bvh_render(cornell):
         for scene, c in ((tds, cfg), (brute, nb), (tds, nb)):
             st = twf.AccumState.make(c, "cpu")
             for _ in range(2):
-                st, _ = twf.render_pass(scene, tview, st, c)
+                st, _ = twf.render_pass_auto(scene, tview, st, c)
             out.append(st.accumulator.numpy())
         # use_bvh=False ignores a BVH the scene still carries
         np.testing.assert_array_equal(out[2], out[1])

@@ -369,8 +369,9 @@ def test_payload_and_payload_shading_match_jax(jax_side):
     np.testing.assert_array_equal(jpay[31], hits.float().numpy())
 
     ts = torch.where(hits, tmin, 1.0)
-    sd = tsh.shading_from_payload(ds, d, ts, prim_g, pay, u_g, v_g,
-                                  view.spread_angle)
+    sd = tsh.shading_from_payload(ds, d, ts, pay, u_g, v_g,
+                                  view.spread_angle, geom_reattach=False,
+                                  prim=prim_g)
     j = lambda x: jnp.asarray(x.detach().numpy())
     jsd = jsh.shading_from_payload(jds, j(d), j(ts), jnp.asarray(jpay),
                                    j(u_g), j(v_g), float(view.spread_angle),

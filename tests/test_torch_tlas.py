@@ -120,7 +120,7 @@ def test_default_sync_equals_jax_default():
 def test_walks_on_the_composed_tree_match_brute_force():
     entries, (w0, w1, w2) = _random_instances(seed=1)
     flat = ttlas.compose_two_level(entries)
-    bvh = device_bvh_from_flat(flat, w0, w1, w2, "cpu")
+    bvh = device_bvh_from_flat(flat, w0, w1, w2, device="cpu")
     # rays from a shell around the scene towards random triangles' centroids
     rng = np.random.default_rng(5)
     o = rng.normal(size=(512, 3))

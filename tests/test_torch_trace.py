@@ -10,7 +10,13 @@ are compared) are held against
     tests/test_cluster_kernel.py runs them: prim equal, t within rtol 2e-4
     (the Pallas kernel computes t from MXU plane forms, not Moller-Trumbore);
   - the JAX lockstep traversal (bvh_intersect, bvh_occluded) on the same
-    topology: prim, visits and occlusion equal, t/u/v within float32 noise.
+    topology: prim, visits and occlusion equal, t/u/v within float32 noise;
+  - build_device_bvh against JAX's (both through the native builder, one
+    C++ source compiled alike): every DeviceBVH array equal; then
+    bvh_intersect_counts against JAX's, its five outputs (prim and the
+    per-ray step counts equal, t/u/v within the bounds above), and
+    bvh_intersect / bvh_occluded called with JAX's positional arguments
+    (v0, e1, e2, t_max).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -19,10 +25,12 @@ import torch
 
 from lighthouse2_tpu.bvh.builder import build_sah_bvh_numpy as jbuild
 from lighthouse2_tpu.bvh.clusters import PAY_PRIM, cut_clusters
+from lighthouse2_tpu.bvh import traverse as jtraverse
 from lighthouse2_tpu.bvh.traverse import (
     bvh_intersect_counts, bvh_occluded, device_bvh_from_flat as jdevice_bvh)
 from lighthouse2_tpu.render.kernels.trace import trace_cluster_bvh
 from lighthouse2_tpu_torch.bvh.builder import build_sah_bvh_numpy
+from lighthouse2_tpu_torch.bvh import traverse as ttraverse
 from lighthouse2_tpu_torch.bvh.traverse import (
     STACK_CAP, bvh_intersect, device_bvh_from_flat)
 from lighthouse2_tpu_torch.bvh.wide import STACK_CAP as STACK4_CAP
@@ -52,7 +60,7 @@ def _rays(n, seed=1):
 def setup():
     v0, v1, v2 = _scene(500)
     flat = build_sah_bvh_numpy(v0, v1, v2)
-    bvh = device_bvh_from_flat(flat, v0, v1, v2, "cpu")
+    bvh = device_bvh_from_flat(flat, v0, v1, v2, device="cpu")
     o, d = _rays(2048)
     return dict(v=(v0, v1, v2), flat=flat, bvh=bvh, o=o, d=d)
 
@@ -77,7 +85,7 @@ def test_occluded_matches_pallas_interpret(setup):
     v0, v1, v2 = _scene(300, seed=4)
     cb = cut_clusters(jbuild(v0, v1, v2), dict(v0=v0, v1=v1, v2=v2))
     bvh = device_bvh_from_flat(build_sah_bvh_numpy(v0, v1, v2), v0, v1, v2,
-                               "cpu")
+                               device="cpu")
     o, d = _rays(1024, seed=5)
     tmax = np.full(1024, 1.5, np.float32)
     want = np.asarray(trace_cluster_bvh(jnp.asarray(o), jnp.asarray(d), cb,
@@ -147,7 +155,7 @@ def _comb_bvh(depth):
     flat = dict(nmin=np.full((m, 3), -2, np.float32),
                 nmax=np.full((m, 3), 2, np.float32), left=left, right=right,
                 count=count, prim=np.arange(n, dtype=np.int32))
-    return device_bvh_from_flat(flat, v0, v1, v2, "cpu")
+    return device_bvh_from_flat(flat, v0, v1, v2, device="cpu")
 
 
 def test_stack_capacity_is_checked(setup):
@@ -213,3 +221,40 @@ def test_wrappers_detach_rays_that_carry_gradients(setup):
         assert not got.requires_grad and got.grad_fn is None
         assert torch.equal(got, want)
     assert (want_c[1] >= 0).any() and want_o.any()
+
+
+def test_build_device_bvh_and_counts_match_jax(setup):
+    v0, v1, v2 = setup["v"]
+    jb = jtraverse.build_device_bvh(v0, v1, v2)
+    tb = ttraverse.build_device_bvh(v0, v1, v2, device="cpu")
+    for f in ("nbox", "left", "right", "count", "prim", "tri9"):
+        np.testing.assert_array_equal(getattr(tb, f).numpy(),
+                                      np.asarray(getattr(jb, f)), err_msg=f)
+    assert tb.max_leaf == jb.max_leaf == 4
+    o, d = setup["o"], setup["d"]
+    tmax = np.random.default_rng(7).uniform(0.5, 4, o.shape[0]).astype(
+        np.float32)
+    jt, jp, ju, jv, jsteps = jtraverse.bvh_intersect_counts(
+        jnp.asarray(o), jnp.asarray(d), jb, t_max=jnp.asarray(tmax))
+    to, td, tm = (torch.from_numpy(a) for a in (o, d, tmax))
+    t, p, u, v, steps = ttraverse.bvh_intersect_counts(to, td, tb, t_max=tm)
+    assert steps.dtype == torch.int32 and (p >= 0).sum() > 150
+    np.testing.assert_array_equal(p.numpy(), np.asarray(jp))
+    np.testing.assert_array_equal(steps.numpy(), np.asarray(jsteps))
+    np.testing.assert_allclose(t.numpy(), np.asarray(jt), rtol=1e-6)
+    np.testing.assert_allclose(u.numpy(), np.asarray(ju), atol=5e-5)
+    np.testing.assert_allclose(v.numpy(), np.asarray(jv), atol=5e-5)
+    # JAX's positional arguments: v0, e1, e2 (accepted, not read), t_max
+    e1 = torch.from_numpy(v1 - v0)
+    e2 = torch.from_numpy(v2 - v0)
+    hit = bvh_intersect(to, td, tb, torch.from_numpy(v0), e1, e2, tm)
+    for a, b in zip(hit, (t, p, u, v)):
+        assert torch.equal(a, b)
+    occ = ttraverse.bvh_occluded(to, td, tm, tb, torch.from_numpy(v0), e1, e2)
+    np.testing.assert_array_equal(
+        occ.numpy(), np.asarray(jtraverse.bvh_occluded(
+            jnp.asarray(o), jnp.asarray(d), jnp.asarray(tmax), jb)))
+    # device_bvh_from_flat takes max_leaf fifth, as JAX's
+    again = device_bvh_from_flat(build_sah_bvh_numpy(v0, v1, v2), v0, v1, v2,
+                                 4, device="cpu")
+    assert again.max_leaf == 4

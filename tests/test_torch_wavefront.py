@@ -3,13 +3,17 @@
   - generate_eye_rays, lane by lane (rtol 1e-5 / atol 1e-6: sin, cos, atan2
     and rsqrt round differently in the last bit);
   - the slice as a whole: two regen passes on a 32x32 Cornell box, path 4,
-    through the port on the CPU (the trace kernels' plain versions) and the
-    JAX package with intersector="lockstep" (its plain reference for the
-    trace kernels, shading through the same gather path), on the same
-    carried-across scene and view; the stats carry JAX's keys, dtypes and
-    shapes (primary_rays = samples_completed, int32), and the completed
-    samples total the per-pixel counts;
-  - render_pass rejects what the port does not implement (filter_enabled
+    through the port's render_pass_regen on the CPU (the trace kernels'
+    plain versions) and the JAX package's with intersector="lockstep" (its
+    plain reference for the trace kernels, shading through the same gather
+    path; run once, a module fixture), on the same carried-across scene
+    and view; the stats carry JAX's keys, dtypes and shapes (primary_rays =
+    samples_completed, int32), and the completed samples total the
+    per-pixel counts;
+  - render_pass_auto(path_regen=True) and _render_pass_regen_jit against
+    the same JAX passes, and bit for bit against render_pass_regen (they
+    run the same code);
+  - the executors reject what the port does not implement (filter_enabled
     with path_regen, as JAX asserts; scene_sharded, which is
     parallel/scene_shard.py's pass).
 Per-pixel accumulators are compared as the fraction of pixels within
@@ -79,20 +83,49 @@ def test_generate_eye_rays_per_lane(cornell, w, h, lens):
                                       err_msg=k)
 
 
-def test_regen_slice_matches_jax_lockstep(cornell):
-    jds, jview, tds, tview = cornell
+REGEN_CFG = RenderConfig(width=32, height=32, max_path_length=4,
+                         path_regen=True)
+
+
+@pytest.fixture(scope="module")
+def jax_regen(cornell):
+    """Two passes of JAX's render_pass_regen: (final state, stats)."""
+    jds, jview, _, _ = cornell
     jcfg = JConfig(width=32, height=32, max_path_length=4, path_regen=True,
                    intersector="lockstep")
-    tcfg = RenderConfig(width=32, height=32, max_path_length=4,
-                        path_regen=True)
-    jstate = jwf.AccumState.make(jcfg)
+    jstate, jstats = jwf.AccumState.make(jcfg), []
+    for _ in range(2):
+        jstate, js = jwf.render_pass_regen(jds, jview, jstate, jcfg)
+        jstats.append(js)
+    jax.block_until_ready(jstate.accumulator)
+    return jstate, jstats
+
+
+def _assert_regen_matches_jax(tstate, jstate):
+    """The bounds of the module docstring on the final states."""
+    assert tstate.sample_count == 2 and tstate.cam_seed == int(jstate.cam_seed)
+    ja, ta = np.asarray(jstate.accumulator), tstate.accumulator.numpy()
+    close = np.isclose(ta, ja, rtol=1e-3, atol=1e-4).all(-1)
+    assert close.mean() >= PIXELS_CLOSE, close.mean()
+    jc, tc = np.asarray(jstate.pixel_count), tstate.pixel_count.numpy()
+    assert ((jc != tc) <= ~close).all()
+    ji = np.asarray(jwf.finalize(jstate))
+    ti = twf.finalize(tstate).numpy()
+    assert np.isfinite(ti).all() and ti.mean() > 0
+    assert abs(ti.mean() - ji.mean()) <= MEAN_RTOL * abs(ji.mean())
+    return close
+
+
+def test_regen_slice_matches_jax_lockstep(cornell, jax_regen):
+    _, _, tds, tview = cornell
+    tcfg = REGEN_CFG
+    jstate, jstats = jax_regen
     tstate = twf.AccumState.make(tcfg, "cpu")
     jtot = np.zeros(2, np.int64)
     ttot = np.zeros(2, np.int64)
     jdone = tdone = 0
-    for _ in range(2):
-        jstate, js = jwf.render_pass_regen(jds, jview, jstate, jcfg)
-        tstate, ts = twf.render_pass(tds, tview, tstate, tcfg)
+    for js in jstats:
+        tstate, ts = twf.render_pass_regen(tds, tview, tstate, tcfg)
         jtot += [int(js["total_extension"]), int(js["total_shadow"])]
         ttot += [int(ts["total_extension"]), int(ts["total_shadow"])]
         # the stats carry JAX's keys with JAX's dtypes (int32 scalars for
@@ -104,25 +137,39 @@ def test_regen_slice_matches_jax_lockstep(cornell):
         assert int(ts["primary_rays"]) == int(ts["samples_completed"])
         jdone += int(js["samples_completed"])
         tdone += int(ts["samples_completed"])
-    jax.block_until_ready(jstate.accumulator)
-    assert tstate.sample_count == 2 and tstate.cam_seed == int(jstate.cam_seed)
-
-    ja, ta = np.asarray(jstate.accumulator), tstate.accumulator.numpy()
-    close = np.isclose(ta, ja, rtol=1e-3, atol=1e-4).all(-1)
-    assert close.mean() >= PIXELS_CLOSE, close.mean()
+    close = _assert_regen_matches_jax(tstate, jstate)
     n_diff = int((~close).sum())
 
     jc, tc = np.asarray(jstate.pixel_count), tstate.pixel_count.numpy()
-    assert ((jc != tc) <= ~close).all()
     assert tdone == tc.sum() and jdone == jc.sum()
     assert abs(tdone - jdone) <= np.abs(jc - tc).sum()
     assert jtot[0] == ttot[0] == 2 * 4 * 32 * 32
     assert abs(jtot[1] - ttot[1]) <= n_diff * 2 * 4
 
-    ji = np.asarray(jwf.finalize(jstate))
-    ti = twf.finalize(tstate).numpy()
-    assert np.isfinite(ti).all() and ti.mean() > 0
-    assert abs(ti.mean() - ji.mean()) <= MEAN_RTOL * abs(ji.mean())
+
+def test_regen_entry_points_match_jax(cornell, jax_regen):
+    _, _, tds, tview = cornell
+    cfg = REGEN_CFG
+    jstate, _ = jax_regen
+    out = {}
+    for name, fn in (
+            ("render_pass_regen", twf.render_pass_regen),
+            ("render_pass_auto", twf.render_pass_auto),
+            ("_render_pass_regen_jit", lambda s, v, st, c: (
+                twf._render_pass_regen_jit(
+                    s, v, twf.ensure_regen_state(v, st, c), c)))):
+        st = twf.AccumState.make(cfg, "cpu")
+        for _ in range(2):
+            st, stats = fn(tds, tview, st, cfg)
+        _assert_regen_matches_jax(st, jstate)
+        out[name] = (st, stats)
+    ref, ref_stats = out.pop("render_pass_regen")
+    for name, (st, stats) in out.items():
+        assert torch.equal(st.accumulator, ref.accumulator), name
+        assert torch.equal(st.pixel_count, ref.pixel_count), name
+        assert st.cam_seed == ref.cam_seed, name
+        for k in ref_stats:
+            assert torch.equal(stats[k], ref_stats[k]), (name, k)
 
 
 def test_render_pass_rejects_unported_options(cornell):
@@ -130,5 +177,12 @@ def test_render_pass_rejects_unported_options(cornell):
     for kw in (dict(path_regen=True, filter_enabled=True),
                dict(path_regen=True, scene_sharded=True)):
         cfg = RenderConfig(width=32, height=32, max_path_length=2, **kw)
+        for fn in (twf.render_pass_auto, twf.render_pass_regen):
+            with pytest.raises(ValueError, match="does not support"):
+                fn(tds, tview, twf.AccumState.make(cfg, "cpu"), cfg)
+    cfg = RenderConfig(width=32, height=32, max_path_length=2,
+                       scene_sharded=True)
+    for fn in (twf.render_pass, twf.render_pass_staged,
+               twf.render_pass_unrolled):
         with pytest.raises(ValueError, match="does not support"):
-            twf.render_pass(tds, tview, twf.AccumState.make(cfg, "cpu"), cfg)
+            fn(tds, tview, twf.AccumState.make(cfg, "cpu"), cfg)

@@ -72,7 +72,7 @@ def _rays(name, n, seed):
 def scene(request):
     v0, v1, v2 = _vertices(request.param)
     flat = build_sah_bvh_numpy(v0, v1, v2)
-    bvh = device_bvh_from_flat(flat, v0, v1, v2, "cpu")
+    bvh = device_bvh_from_flat(flat, v0, v1, v2, device="cpu")
     o, d, tmax = _rays(request.param, 1536, seed=3)
     return dict(name=request.param, v=(v0, v1, v2), flat=flat, bvh=bvh,
                 o=torch.from_numpy(o), d=torch.from_numpy(d),
@@ -204,7 +204,7 @@ def test_walk_matches_jax_lockstep(name):
     and to 1e-5 on all."""
     (v0, v1, v2), (o, d, tmax) = _lockstep_inputs(name)
     flat = build_sah_bvh_numpy(v0, v1, v2)
-    bvh = device_bvh_from_flat(flat, v0, v1, v2, "cpu")
+    bvh = device_bvh_from_flat(flat, v0, v1, v2, device="cpu")
     jbvh = jdevice_bvh(flat, v0, v1, v2)
     jt, jp, ju, jv, _ = bvh_intersect_counts(jnp.asarray(o), jnp.asarray(d),
                                              jbvh, t_max=jnp.asarray(tmax))
@@ -235,7 +235,7 @@ def test_walk_matches_pallas_interpret(anyhit):
     v0, v1, v2 = _soup(300, seed=8)
     cb = cut_clusters(jbuild(v0, v1, v2), dict(v0=v0, v1=v1, v2=v2))
     bvh = device_bvh_from_flat(build_sah_bvh_numpy(v0, v1, v2), v0, v1, v2,
-                               "cpu")
+                               device="cpu")
     o, d, tmax = _rays("rand300", 1024, seed=9)
     to, td, tt = (torch.from_numpy(a) for a in (o, d, tmax))
     if anyhit:
@@ -289,7 +289,7 @@ def _comb(depth):
     flat = dict(nmin=np.full((m, 3), -2, np.float32),
                 nmax=np.full((m, 3), 2, np.float32), left=left, right=right,
                 count=count, prim=np.arange(n, dtype=np.int32))
-    return flat, device_bvh_from_flat(flat, v0, v1, v2, "cpu")
+    return flat, device_bvh_from_flat(flat, v0, v1, v2, device="cpu")
 
 
 def test_depth_check_on_a_comb():
@@ -320,7 +320,7 @@ def test_root_leaf_and_empty_slots(n_tris):
     boxes on their faces; the count mask keeps them out of the walk."""
     v0, v1, v2 = _soup(n_tris, seed=11)
     flat = build_sah_bvh_numpy(v0, v1, v2)
-    bvh = device_bvh_from_flat(flat, v0, v1, v2, "cpu")
+    bvh = device_bvh_from_flat(flat, v0, v1, v2, device="cpu")
     _, codes, cnts = _records(bvh)
     assert bvh.node4.shape[0] == 1 and bvh.depth4 == 1
     np.testing.assert_array_equal(cnts[0], [n_tris, -1, -1, -1])
