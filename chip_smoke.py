@@ -29,37 +29,42 @@ Phases; any failure exits non-zero before the result line is printed:
      counts; then both kernels' times on the numpy single-level tree for
      the same three batches;
   3. the main path: bathroom 512x512, path 16, path regeneration, through
-     render_pass_auto (the regen executor) — 1 warm-up and 3 timed
-     passes; Mrays/s (extension + shadow rays), per-bounce ray counts, peak
-     memory, the image; each kernel must launch exactly 16 times a pass;
-     then one profiled pass;
+     render_pass_auto (the regen executor), every graph entry point's
+     graph freed first — 2 warm-ups (eager, then the CUDA graph's
+     capture), 3 timed passes and one profiled; Mrays/s (extension +
+     shadow rays), per-bounce ray counts, peak memory, the image; the
+     launch gates of _replay_gates: each warm-up launches each kernel 16
+     times through its wrapper, every later pass replays the graph and
+     launches none through them, and the profiled replay runs 16
+     closest-hit and 16 any-hit kernels by the profiler's count;
   4. a 64x64 Cornell box rendered on the card and on the CPU (plain
      versions), compared per pixel;
   5. [train] the fwd+bwd headline (bench.py:291-297): bathroom 512x512,
      path 16, regen, remat, through diff.render.regen_value_and_grad with
      material colours [12,3], area-light radiance [LT,3] and per-vertex
      offsets [129252,3,3] (zeros) as parameters and a zero target;
-     1 warm-up and 2 timed steps; fwd+bwd Mrays/s (rays of one forward
-     stats pass, bench.py:129-134), ms per step, peak memory, kernel
-     launches per step (each kernel must launch 16 times a step: both
-     traces stay outside the recomputed region), each gradient group's
-     norm (all finite, each group nonzero); one step without remat for its
-     peak memory; one profiled step (device ms, busy share, top device
-     ops); then a 64x64 Cornell box, path 4, regen, fwd+bwd on the card and
+     2 warm-ups, 2 timed steps and one profiled (device ms, busy share,
+     top device ops); fwd+bwd Mrays/s (rays of one forward stats pass,
+     bench.py:129-134), ms per step, peak memory, the launch gates of
+     phase 3 (16 launches of each kernel a warm-up step: both traces stay
+     outside the recomputed region), each gradient group's norm (all
+     finite, each group nonzero); one step without remat for its peak
+     memory; then a 64x64 Cornell box, path 4, regen, fwd+bwd on the card and
      on the CPU, gradients compared per group by relative L2 error
      (GRAD_RTOL, the bounds of tests/test_torch_grad.py);
   6. [disney] the bathroom 512x512 (129,252 triangles) with the golden
      16x32 gradient sky, bsdf="disney", sky_ibl=True, path 16, regen,
      created and driven through RenderAPI.create("wavefront", ...,
-     device=card): 1 warm-up and 3 timed api.render() calls; Mrays/s, ms
-     per pass (core.stats["render_time"]), peak memory, the launches of
-     each kernel per pass (must be 16 and 16), the image (finite, mean > 0)
-     and get_ldr_image (finite, in [0, 1]); the Lambert scene of phase 3
-     driven the same way through RenderAPI, so both ms per pass have one
-     definition; one profiled pass printed beside the Lambert pass of
-     phase 3; then one warm-up and one timed fwd+bwd step of
+     device=card): 2 warm-ups, 3 timed api.render() calls and one
+     profiled (printed beside the Lambert pass of phase 3); Mrays/s, ms
+     per pass (core.stats["render_time"]), peak memory, the launch gates
+     of phase 3, the image (finite, mean > 0) and get_ldr_image (finite,
+     in [0, 1]); the Lambert scene of phase 3 driven the same way through
+     RenderAPI, so both ms per pass have one definition; then two
+     warm-ups, one timed and one profiled fwd+bwd step of
      regen_value_and_grad with remat and the parameter groups of [train]
-     (each gradient group finite and nonzero), and the 64x64 Cornell
+     (the launch gates of phase 3; each gradient group finite and
+     nonzero), and the 64x64 Cornell
      fwd+bwd of phase 5 with test_sky, Disney and IBL on the card and on
      the CPU (GRAD_RTOL);
   7. [golden] utils/golden.py render_golden on the card and on the CPU:
@@ -75,20 +80,22 @@ Phases; any failure exits non-zero before the result line is printed:
      ANIM_FRAMES frames of anim.update(scene, 1/30) + api.render(
      converge=False). Per frame: host seconds of the update and of the sync
      by step, render ms, Mrays/s, the build_stats deltas (2 BLAS builds,
-     the two posed meshes, and 1 compose) and 16 + 16 kernel launches; on
+     the two posed meshes, and 1 compose) and 16 + 16 kernel launches
+     through the wrappers (a re-synced frame's tree has new shapes, so the
+     pass runs eagerly and replays no graph); on
      the last frame both kernels equal their plain BVH4 walk on every lane
      of its three batches; the image finite with mean > 0;
   9. [cli] apps/render_cli.main on that glTF at 256x256, 2 spp, on the
      card: returns 0 and writes a PNG that reads back at (256, 256, 3);
  10. [filter] the bathroom 512x512 through RenderAPI.create(
      "wavefront_filter") (classic executor, spp 1, path 16, Lambert, TAA):
-     1 warm-up and FILTER_FRAMES frames, the camera moving FILTER_MOVE and
+     2 warm-ups and FILTER_FRAMES frames, the camera moving FILTER_MOVE and
      turning FILTER_TURN a frame; per frame the ms of the pass and of
      the filter (SVGF + TAA + unsharpen), each closed by a synchronize, the
-     launches of each kernel (must equal the path length: the core's
-     render_pass_auto runs render_pass_unrolled on the card), the
      share of pixels whose history survived reprojection (must be > 0),
-     the image (finite); peak memory; a profiled frame; the filter alone on
+     the image (finite); peak memory; a profiled frame; the launch gates
+     of phase 3 (the core's render_pass_auto runs render_pass_unrolled on
+     the card: each kernel once a bounce, live or not); the filter alone on
      one pass's G-buffers (ms, device ms and launches); the last filtered
      frame must be smoother than a raw 1-spp frame of the same view
      (variance of neighbour differences);
@@ -200,14 +207,15 @@ Phases; any failure exits non-zero before the result line is printed:
      the common bound. (a') the same gates on a tiles_per_cluster 2 cut of
      the tree (cut_clusters(min_tpc=2)), the first TPC2_BLOCKS blocks of
      each batch: the kernels' path for clusters of several tiles. (b) the bathroom 512x512,
-     path 16, regen through render_pass_auto: 1 warm-up and CLUSTER_PASSES
-     timed passes, each launching each cluster kernel 16 times and the BVH4
-     kernels never; Mrays/s, ms a pass, peak memory; the image against
-     the "auto" passes of the same run (FRAC_BAD_MAX, MEAN_REL_MAX: the
-     two structures differ only in exact t-ties); one profiled pass.
-     (c) one warm-up and one timed fwd+bwd step of regen_value_and_grad
-     (grads "all", remat) on the cluster path: ms, peak memory, 16 + 16
-     launches; loss within LOSS_RTOL and each gradient group within
+     path 16, regen through render_pass_auto: 2 warm-ups, CLUSTER_PASSES
+     timed passes and one profiled, the launch gates of phase 3 with the
+     cluster kernels (the BVH4 kernels never launch); Mrays/s, ms a pass,
+     peak memory; the image against the "auto" passes of the same run
+     (FRAC_BAD_MAX, MEAN_REL_MAX: the two structures differ only in exact
+     t-ties). (c) two warm-ups, one timed and one profiled fwd+bwd step of
+     regen_value_and_grad (grads "all", remat) on the cluster path: ms,
+     peak memory, the launch gates of (b); loss within LOSS_RTOL and each
+     gradient group within
      GRAD_RTOL (relative L2, tests/test_torch_grad.py's bounds) of the
      "auto" step from the same state; the device-time share of the
      re-attach backward (index_add_) beside the gather backward's share of
@@ -222,20 +230,60 @@ Phases; any failure exits non-zero before the result line is printed:
      (a) one pass from a fresh state through each of EXEC_FORMS
      (render_pass, render_pass_jit, render_pass_staged,
      render_pass_unrolled and render_pass_auto with a classic config,
-     render_pass_regen and render_pass_auto with path_regen=True), the
-     launch counts set to 0 before each and read after; the forms that
+     render_pass_regen and render_pass_auto with path_regen=True), every
+     graph freed and the launch counts set to 0 before each and read
+     after; the forms that
      read nothing back run it under torch.cuda.set_sync_debug_mode(
      "error"), so any host synchronisation raises. Gates: every image
      equal to its family's reference (render_pass, render_pass_regen) on
      every pixel (pixel counts too for regen), the per-bounce ray counts
      and samples_completed equal, each kernel launched once a bounce with
-     a live lane (16 + 16). (b) per form: wall ms a pass (1 warm-up +
-     EXEC_PASSES timed, the clock stopped after a synchronize), device ms,
-     busy share and device launches of one profiled pass, and the host
+     a live lane (16 + 16). (b) per form: wall ms a pass (after (a) and
+     one more pass, where a graph entry point captures, EXEC_PASSES timed,
+     the clock stopped after a synchronize), device ms, busy share,
+     device launches and kernels by name of one profiled pass (a graph
+     form's timed and profiled passes pass the launch gates of phase 3,
+     an eager form replays nothing), and the host
      synchronisations of one more (set_sync_debug_mode("warn")). (c)
      [staged profile]: one profiled render_pass_staged, the device ms of
      each stage summed over the bounces, from its record_function range,
      and its share of the pass's device time.
+ 21. [graphs] the three entry points render/graphs.py captures as CUDA
+     graphs (the counterpart of jax.jit), at the main path's
+     configuration: (a) for the regen pass on "auto", the unrolled pass on
+     "auto" and the regen pass on "cluster" (the tiles of phase 19): from
+     one state, GRAPH_PASSES passes through the eager body
+     (render/wavefront.py _regen_pass / _unrolled_pass) and GRAPH_PASSES
+     calls of the entry point (warm-up, capture, replays), every result
+     equal bit for bit (accumulator, pixel counts, pool, cam_seed,
+     sample_count, stats); GRAPH_TIMED timed passes of each (wall ms,
+     medians), one replay under set_sync_debug_mode("error"), one of each
+     profiled (device ms, device launches), the launch gates of phase 3
+     over every call, the busy share (the profiled pass's device ms over
+     the median wall, and over its own profiled wall); the seconds of the
+     capture and of the instantiation (with the end of the capture), the
+     pool's reserved bytes, peak memory of the eager and the graph run.
+     (b) on the live regen graph: a moved camera and new material colours
+     replay, each equal to its eager pass; a Cornell box (other shapes)
+     takes a new key and runs eagerly. (c) the fwd+bwd step (grads "all",
+     remat) on "auto" and on "cluster": GRAPH_PASSES eager steps
+     (diff/render.py fb_pass) against GRAPH_PASSES calls of
+     regen_value_and_grad, then GRAPH_OPT_STEPS replays between which
+     torch.optim.Adam steps the parameter leaves in place, each against
+     fb_pass on the same inputs: loss and state bit-equal, each gradient
+     group equal or within the spread of eager steps from the same inputs
+     (GRAPH_SPREAD_STEPS); ms a step and fwd+bwd Mrays/s eager and
+     replayed, device ms, capture and instantiation, peak memory, the
+     launch gates of phase 3.
+Since the graphs, the earlier phases' calls of render_pass_auto (regen,
+and classic on the card), render_pass_regen, render_pass_unrolled, the
+cores' passes and regen_value_and_grad run eagerly at the first call with
+a key and replay a graph from the second (its capture inside that call).
+A kernel's wrapper counts its launches in the eager call and in the
+capture, never in a replay, which runs the graph's kernels without it:
+the launch gates read which kind each call was from the wrappers' counts
+and the graph replays, and count a replay's kernels by name with the
+profiler.
 It then prints one JSON line of per-kernel numbers (the two BVH4 kernels
 and the two cluster kernels), the card's name and power limit, and last
 the result line {"ok": true, "device": {...}}.
@@ -316,15 +364,20 @@ LOSS_RTOL = 1e-4           # tests/test_torch_grad.py: the loss, relative
 EXEC_PASSES = 3            # timed passes of each [executors] form
 # [executors]: (label, render/wavefront.py entry point, classic or regen
 # config, whether it reads back from the device: only render_pass and
-# render_pass_jit do, one bool a bounce)
-EXEC_FORMS = (("render_pass", "render_pass", "classic", True),
-              ("render_pass_jit", "render_pass_jit", "classic", True),
-              ("render_pass_staged", "render_pass_staged", "classic", False),
-              ("render_pass_unrolled", "render_pass_unrolled", "classic",
+# render_pass_jit do, one bool a bounce; whether it runs a captured graph
+# from its second call)
+EXEC_FORMS = (("render_pass", "render_pass", "classic", True, False),
+              ("render_pass_jit", "render_pass_jit", "classic", True, False),
+              ("render_pass_staged", "render_pass_staged", "classic", False,
                False),
-              ("render_pass_auto", "render_pass_auto", "classic", False),
-              ("render_pass_regen", "render_pass_regen", "regen", False),
-              ("render_pass_auto_regen", "render_pass_auto", "regen", False))
+              ("render_pass_unrolled", "render_pass_unrolled", "classic",
+               False, True),
+              ("render_pass_auto", "render_pass_auto", "classic", False,
+               True),
+              ("render_pass_regen", "render_pass_regen", "regen", False,
+               True),
+              ("render_pass_auto_regen", "render_pass_auto", "regen", False,
+               True))
 EXEC_REFERENCE = dict(classic="render_pass", regen="render_pass_regen")
 EXEC_STAGES = ("_stage_generate", "_stage_prepare", "_stage_trace",
                "_stage_shade", "_stage_occlude", "_stage_apply",
@@ -333,6 +386,35 @@ EXEC_STAGES = ("_stage_generate", "_stage_prepare", "_stage_trace",
 # backward (index_add_) and the gather backward
 TRAIN_SHARES = dict(reattach_index_add="indexFunc",
                     gather_backward="indexing_backward")
+GRAPH_PASSES = 4           # [graphs]: passes (steps) held eager against graph
+GRAPH_TIMED = 5            # [graphs]: timed passes (steps) of each, medians
+GRAPH_MOVE = (0.05, 0.0, 0.02)   # [graphs] (b): camera translation (metres)
+# [graphs] (c): eager steps from each compared graph step's inputs, where
+# its gradients are not bit-equal (the cluster path's re-attach backward
+# sums with atomics, so two eager steps differ in the last bits): the graph
+# step must lie no farther from the nearest of its eager steps than the
+# farthest two eager steps from one input are apart, over every compared
+# step's inputs (the spread). Were each graph step one more eager step,
+# that gate fails in none of 300 simulated runs of 6 compared steps
+# (independent Gaussian noise on 400,000 entries) with 5 eager steps an
+# input, in 4 with 3. 3 are taken first and 5 only where 3 do not hold
+# the graph step: more eager steps can only widen the spread and bring
+# the nearest nearer, so the verdict is that of 5. Then the replays
+# between which torch.optim.Adam steps the parameter leaves in place, and
+# its learning rate
+GRAPH_SPREAD_STEPS = (3, 5)
+GRAPH_OPT_STEPS = 2
+GRAPH_OPT_LR = 1e-3
+# the entry points render/graphs.py captures (_captured)
+GRAPH_ENTRIES = ("render_pass_unrolled", "_render_pass_regen_jit",
+                 "regen_value_and_grad")
+# the numbers of each [graphs] run on its summary line
+GRAPH_SUMMARY = ("wall_ms_eager", "wall_ms_replay", "ms_step_eager",
+                 "ms_step_replay", "mrays_per_s_eager", "mrays_per_s_replay",
+                 "device_ms_eager", "device_ms_replay", "busy_eager",
+                 "busy_replay", "launches_eager", "launches_replay",
+                 "replay_kernels", "capture_seconds", "instantiate_seconds",
+                 "pool_reserved_bytes", "peak_eager", "peak_graph")
 
 
 def _sh(cmd):
@@ -495,8 +577,79 @@ def _zero_counts():
         fn.launches = 0
 
 
+def _tally():
+    """The launch counts of every kernel and the graph replays of every
+    graph entry point so far (render/graphs.py)."""
+    return dict(_all_counts(), replays=sum(_captured(n).replays
+                                           for n in GRAPH_ENTRIES))
+
+
+def _clear_graphs():
+    """Every graph entry point without a graph: its next call is eager."""
+    for n in GRAPH_ENTRIES:
+        _captured(n).clear()
+
+
+def _call_kind(c, cfg):
+    """What a call of a graph entry point was, from its _tally deltas `c`:
+    "eager" (each of the path's kernels launched max_path_length times
+    through its wrapper, no replay), "capture" (those launches recorded,
+    then one replay), "replay" (no launch through a wrapper, one replay),
+    or "unexpected"."""
+    counts, _ = _kernel_syms(cfg)
+    launched = {k: c[k] for k in _all_counts()}
+    run = {k: (cfg.max_path_length if k in counts else 0) for k in launched}
+    if launched == run and c["replays"] in (0, 1):
+        return ("eager", "capture")[c["replays"]]
+    if not any(launched.values()) and c["replays"] == 1:
+        return "replay"
+    return "unexpected"
+
+
+def _tallied(fn, per_call):
+    """fn(), its _tally deltas appended to `per_call`; fn's result."""
+    before = _tally()
+    out = fn()
+    per_call.append(_launch_deltas(before, _tally()))
+    return out
+
+
+def _profile_replay(fn, dev, tag, per_call, **kw):
+    """_profile of one call of fn (a replay of a graph), its _tally deltas
+    appended to `per_call`."""
+    return _tallied(lambda: _profile(fn, dev, tag, **kw), per_call)
+
+
+def _launch_summary(res, name, sym):
+    """A phase's launches of one kernel for the kernels line: through its
+    wrapper in each call (eager and capture calls; a replay's are 0), and
+    in the profiled replay by the profiler's count."""
+    return dict(per_call=[c[name] for c in res["launches_per_call"]],
+                replay_profiled=res["replay_kernels"][sym])
+
+
+def _replay_gates(tag, cfg, per_call, kinds, prof):
+    """The launch gates of calls that run a graph entry point: the calls'
+    kinds (_call_kind, from the wrappers' counts and the replays) are
+    `kinds`, and `prof`, the profiler's kernel counts of one of those
+    replays, holds max_path_length of each of the path's kernels and none
+    of the others: a replay runs its graph's kernels without the wrappers,
+    so only the profiler counts them."""
+    _, syms = _kernel_syms(cfg)
+    got = [_call_kind(c, cfg) for c in per_call]
+    want = {k: (cfg.max_path_length if k in syms else 0) for k in prof}
+    bad = []
+    if got != list(kinds):
+        bad.append(f"calls {got}, want {list(kinds)}: {per_call}")
+    if prof != want:
+        bad.append(f"kernels of a profiled replay {prof}, want {want}")
+    if bad:
+        raise AssertionError(tag + "; ".join(bad))
+
+
 def main_path(scene, view, cfg, dev, passes):
-    """Phase 3. Returns the numbers of the timed passes."""
+    """Phase 3. Returns the numbers of the timed passes and of one more,
+    profiled, and the state."""
     import torch
     from lighthouse2_tpu_torch.render.wavefront import (
         AccumState, finalize, render_pass_auto)
@@ -504,25 +657,29 @@ def main_path(scene, view, cfg, dev, passes):
     state = AccumState.make(cfg, dev)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
+    _clear_graphs()
     _zero_counts()
-    counts = [(0, 0)]
+    per_call = []
     t0 = time.perf_counter()
-    state, stats = render_pass_auto(scene, view, state, cfg)      # warm-up
-    counts.append(tuple(_counts().values()))
+    # warm-up: the eager pass, then the pass that captures the CUDA graph
+    for _ in range(2):
+        state, stats = _tallied(
+            lambda: render_pass_auto(scene, view, state, cfg), per_call)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     warm_s = time.perf_counter() - t0
     all_stats = []
     t0 = time.perf_counter()
     for _ in range(passes):
-        state, stats = render_pass_auto(scene, view, state, cfg)
+        state, stats = _tallied(
+            lambda: render_pass_auto(scene, view, state, cfg), per_call)
         all_stats.append(stats)
-        counts.append(tuple(_counts().values()))
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     dt = time.perf_counter() - t0
+    prof = _profile_replay(lambda: render_pass_auto(scene, view, state, cfg),
+                           dev, "[profile] ", per_call)
     launches = _counts()
-    per_pass = [(b[0] - a[0], b[1] - a[1]) for a, b in zip(counts, counts[1:])]
     rays = sum(int(s["total_extension"]) + int(s["total_shadow"])
                for s in all_stats)
     img = finalize(state)
@@ -533,18 +690,19 @@ def main_path(scene, view, cfg, dev, passes):
         extension_rays=all_stats[-1]["extension_rays"].tolist(),
         shadow_rays=all_stats[-1]["shadow_rays"].tolist(),
         samples_completed=int(all_stats[-1]["samples_completed"]),
-        launches=launches, launches_per_pass=per_pass,
+        launches=launches, launches_per_call=per_call,
+        replay_kernels=prof["kernel_launches"],
         image_mean=img.mean().item(),
         image_finite=bool(torch.isfinite(img).all()),
         max_memory_allocated=(torch.cuda.max_memory_allocated(dev)
                               if dev.type == "cuda" else None))
     print("[main] " + json.dumps(res), flush=True)
-    want = cfg.max_path_length
-    if any(p != (want, want) for p in per_pass):
-        raise AssertionError(f"each kernel must launch {want} times a pass, "
-                             f"got {per_pass}")
+    _replay_gates("[main] ", cfg, per_call,
+                  ("eager", "capture") + ("replay",) * (passes + 1),
+                  prof["kernel_launches"])
     if not (res["image_finite"] and res["image_mean"] > 0):
         raise AssertionError("the rendered image is not finite and positive")
+    res["profile"] = prof
     return res, state
 
 
@@ -600,6 +758,8 @@ def _profile(fn, dev, tag, shares=None, cpu=True):
     res = dict(wall_ms=wall * 1e3, device_ms=total / 1e3,
                device_launches=sum(r[2] for r in rows),
                device_busy_share=total / 1e3 / (wall * 1e3),
+               kernel_launches={k: sum(r[2] for r in rows if name(r[1]) == k)
+                                for k in kernels},
                kernel_share_of_device=share,
                kernel_ms_per_launch=per_launch,
                top=[dict(name=k[:60], ms=us / 1e3, calls=c)
@@ -609,13 +769,6 @@ def _profile(fn, dev, tag, shares=None, cpu=True):
                          / max(total, 1e-9) for label, sub in shares.items()}
     print(tag + json.dumps(res), flush=True)
     return res
-
-
-def profile_pass(scene, view, cfg, state, dev):
-    """One more forward pass under torch.profiler."""
-    from lighthouse2_tpu_torch.render.wavefront import render_pass_auto
-    return _profile(lambda: render_pass_auto(scene, view, state, cfg), dev,
-                    "[profile] ")
 
 
 def reference_check(dev, intersector="auto", tag="[reference] "):
@@ -689,31 +842,40 @@ def train_path(scene, view, cfg, dev, steps):
     _, stats0 = render_pass_auto(scene, view, AccumState.make(cfg, dev), cfg)
     fixed_rays = int(stats0["total_extension"]) + int(stats0["total_shadow"])
     state = ensure_regen_state(view, AccumState.make(cfg, dev), cfg)
+    step = lambda: regen_value_and_grad(scene, view, state, cfg, target,
+                                        params)
+    _zero_counts()
+    per_call = []
     t0 = time.perf_counter()
-    loss, grads, state = regen_value_and_grad(scene, view, state, cfg,
-                                              target, params)    # warm-up
+    for _ in range(2):      # warm-up: the eager step, the capturing step
+        loss, grads, state = _tallied(step, per_call)
     torch.cuda.synchronize(dev)
     warm_s = time.perf_counter() - t0
 
     torch.cuda.reset_peak_memory_stats(dev)
-    _zero_counts()
     t0 = time.perf_counter()
     for _ in range(steps):
-        loss, grads, state = regen_value_and_grad(scene, view, state, cfg,
-                                                  target, params)
+        loss, grads, state = _tallied(step, per_call)
     torch.cuda.synchronize(dev)
     dt = time.perf_counter() - t0
-    launches = _counts()
     peak = torch.cuda.max_memory_allocated(dev)
+    # one more step, a replay, under the profiler: device time by kernel
+    # name and the shares of TRAIN_SHARES
+    prof = _profile_replay(step, dev, "[train profile] ", per_call,
+                           shares=TRAIN_SHARES, cpu=False)
     summary = _grad_summary(grads)
     res = dict(steps=steps, seconds=dt, warmup_seconds=warm_s,
                rays_per_step=fixed_rays,
                mrays_per_s=fixed_rays * steps / dt / 1e6,
                ms_per_step=dt * 1e3 / steps, loss=loss.item(),
-               launches=launches,
-               launches_per_step={k: v / steps for k, v in launches.items()},
+               launches_per_call=per_call,
+               replay_kernels=prof["kernel_launches"],
                max_memory_allocated=peak, grads=summary)
     print("[train] " + json.dumps(res), flush=True)
+    _replay_gates("[train] ", cfg, per_call,
+                  ("eager", "capture") + ("replay",) * (steps + 1),
+                  prof["kernel_launches"])
+    res["profile"] = prof
 
     # one step without remat, for its peak memory
     torch.cuda.reset_peak_memory_stats(dev)
@@ -731,28 +893,11 @@ def train_path(scene, view, cfg, dev, steps):
           f"remat, {res['no_remat']['max_memory_allocated'] / 1e9:.2f} GB "
           f"without", flush=True)
 
-    want = cfg.max_path_length * steps
-    if launches != dict(trace_closest=want, trace_occluded=want):
-        raise AssertionError(f"each kernel must launch {cfg.max_path_length} "
-                             f"times a fwd+bwd step, got {launches} over "
-                             f"{steps} steps")
     bad = {k: v for k, v in summary.items()
            if not (v["finite"] and v["nonzero"] > 0)}
     if bad:
         raise AssertionError(f"gradients not finite or all zero: {bad}")
     return res, state
-
-
-def profile_train_step(scene, view, cfg, state, dev):
-    """One fwd+bwd step under torch.profiler: device time by kernel name,
-    and the shares of TRAIN_SHARES."""
-    from lighthouse2_tpu_torch.diff.render import regen_value_and_grad
-
-    cfg = dataclasses.replace(cfg, remat=True)
-    params, target = _headline_params(scene, cfg.width, dev)
-    return _profile(lambda: regen_value_and_grad(scene, view, state, cfg,
-                                                 target, params),
-                    dev, "[train profile] ", TRAIN_SHARES)
 
 
 def grad_reference_check(dev, disney=False):
@@ -831,26 +976,25 @@ def grad_reference_check(dev, disney=False):
 
 
 def api_passes(api, dev, passes, tag):
-    """One warm-up (with the scene's sync) and `passes` timed api.render()
-    calls; checks the launches of each kernel per pass and the images.
-    Returns the numbers."""
+    """Two warm-ups (the first with the scene's sync, the second captures
+    the pass's CUDA graph), `passes` timed api.render() calls and one
+    profiled; checks that the timed and the profiled calls replayed the
+    graph and the profiled replay's kernels (_replay_gates), and the
+    images. Returns the numbers."""
     import numpy as np
     import torch
 
     cfg = api.config
+    per_call = []
     t0 = time.perf_counter()
-    api.render()                                    # sync + warm-up pass
+    _tallied(api.render, per_call)                  # sync + warm-up pass
+    _tallied(api.render, per_call)                  # the graph's capture
     torch.cuda.synchronize(dev)
     warm_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats(dev)
-    _zero_counts()
-    per_pass, stats = [], []
-    for _ in range(passes):
-        before = _counts()
-        stats.append(dict(api.render()))
-        after = _counts()
-        per_pass.append({k: after[k] - before[k] for k in after})
-    launches = _counts()
+    stats = [dict(_tallied(api.render, per_call)) for _ in range(passes)]
+    peak = torch.cuda.max_memory_allocated(dev)
+    prof = _profile_replay(api.render, dev, tag + "profile: ", per_call)
     render_s = sum(st["render_time"] for st in stats)
     rays = sum(st["total_rays"] for st in stats)
     img = api.get_image()
@@ -862,18 +1006,18 @@ def api_passes(api, dev, passes, tag):
         mean_ms_per_pass=render_s * 1e3 / passes,
         extension_rays=stats[-1]["extension_per_bounce"].tolist(),
         shadow_rays=stats[-1]["shadow_per_bounce"].tolist(),
-        spp=api.core.stats["spp"], launches=launches,
-        launches_per_pass=per_pass,
+        spp=api.core.stats["spp"], launches_per_call=per_call,
+        replay_kernels=prof["kernel_launches"],
         image_mean=float(img.mean()),
         image_finite=bool(np.isfinite(img).all()),
         ldr_finite=bool(np.isfinite(ldr).all()),
         ldr_min=float(ldr.min()), ldr_max=float(ldr.max()),
-        max_memory_allocated=torch.cuda.max_memory_allocated(dev))
+        max_memory_allocated=peak)
     print(tag + json.dumps(res), flush=True)
-    want = {k: cfg.max_path_length for k in launches}
-    if any(p != want for p in per_pass):
-        raise AssertionError(f"each kernel must launch {cfg.max_path_length} "
-                             f"times a pass, got {per_pass}")
+    res["profile"] = prof
+    _replay_gates(tag, cfg, per_call,
+                  ("eager", "capture") + ("replay",) * (passes + 1),
+                  prof["kernel_launches"])
     if not (res["image_finite"] and res["image_mean"] > 0):
         raise AssertionError("the image is not finite and positive")
     if not (res["ldr_finite"] and res["ldr_min"] >= 0.0
@@ -933,7 +1077,8 @@ def lambert_api_path(host, cam, cfg, dev, passes):
 
 def disney_train_step(api, dev):
     """Phase 6: fwd+bwd of the Disney + IBL path with remat and the
-    parameter groups of [train]; one warm-up step and one timed."""
+    parameter groups of [train]; two warm-up steps (eager, then the
+    graph's capture), one timed and one profiled (_replay_gates)."""
     import torch
     from lighthouse2_tpu_torch.diff.render import regen_value_and_grad
     from lighthouse2_tpu_torch.render.wavefront import (
@@ -944,29 +1089,31 @@ def disney_train_step(api, dev):
     view = api.camera.get_view(dev)
     params, target = _headline_params(scene, cfg.width, dev)
     state = ensure_regen_state(view, AccumState.make(cfg, dev), cfg)
+    step = lambda: regen_value_and_grad(scene, view, state, cfg, target,
+                                        params)
+    per_call = []
     t0 = time.perf_counter()
-    _, _, state = regen_value_and_grad(scene, view, state, cfg, target,
-                                       params)              # warm-up
+    for _ in range(2):      # warm-up: the eager step, the capturing step
+        _, _, state = _tallied(step, per_call)
     torch.cuda.synchronize(dev)
     warm_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats(dev)
-    _zero_counts()
     t0 = time.perf_counter()
-    loss, grads, _ = regen_value_and_grad(scene, view, state, cfg, target,
-                                          params)
+    loss, grads, _ = _tallied(step, per_call)
     torch.cuda.synchronize(dev)
     dt = time.perf_counter() - t0
-    launches = _counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    prof = _profile_replay(step, dev, "[disney train] profile: ", per_call,
+                           cpu=False)
     summary = _grad_summary(grads)
     res = dict(ms_per_step=dt * 1e3, warmup_seconds=warm_s, loss=loss.item(),
-               launches=launches,
-               max_memory_allocated=torch.cuda.max_memory_allocated(dev),
-               grads=summary)
+               launches_per_call=per_call,
+               replay_kernels=prof["kernel_launches"],
+               max_memory_allocated=peak, grads=summary)
     print("[disney train] " + json.dumps(res), flush=True)
-    want = {k: cfg.max_path_length for k in launches}
-    if launches != want:
-        raise AssertionError(f"each kernel must launch {cfg.max_path_length} "
-                             f"times a Disney fwd+bwd step, got {launches}")
+    _replay_gates("[disney train] ", cfg, per_call,
+                  ("eager", "capture", "replay", "replay"),
+                  prof["kernel_launches"])
     bad = {k: v for k, v in summary.items()
            if not (v["finite"] and v["nonzero"] > 0)}
     if bad:
@@ -1206,10 +1353,10 @@ def _neighbour_var(img):
 def filter_path(host, cam, dev, frames, size=512):
     """Phase 10, [filter]: the bathroom through "wavefront_filter" (classic
     executor, spp 1, path 16, Lambert, TAA) with the camera moving and
-    turning a little each frame; 1 warm-up + `frames` timed frames, one
-    profiled frame, the filter alone profiled and timed on one frame's
-    G-buffers, and a raw 1-spp frame of the last view. Returns the
-    numbers."""
+    turning a little each frame; 2 warm-ups + `frames` timed frames, one
+    profiled frame (_replay_gates), the filter alone profiled and timed on
+    one frame's G-buffers, and a raw 1-spp frame of the last view. Returns
+    the numbers."""
     import copy
     import numpy as np
     import torch
@@ -1230,23 +1377,23 @@ def filter_path(host, cam, dev, frames, size=512):
                       + np.float32(FILTER_MOVE))
         c.direction = _rotate(c.direction, FILTER_TURN, 0.0)
 
+    per_call = []
     t0 = time.perf_counter()
-    api.render()                                  # sync + warm-up frame
+    _tallied(api.render, per_call)                # sync + warm-up frame
+    _tallied(api.render, per_call)                # the pass's graph capture
     torch.cuda.synchronize(dev)
     warm_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats(dev)
     out = dict(warmup_seconds=warm_s, frames=[])
     for i in range(frames):
         move()
-        before = _counts()
-        st = dict(api.render())
-        after = _counts()
+        st = dict(_tallied(api.render, per_call))
         img = api.get_image()
         fr = dict(
             frame=i + 1, pass_ms=st["pass_time"] * 1e3,
             filter_ms=st["filter_time"] * 1e3, frame_ms=st["render_time"] * 1e3,
             mrays_per_s=st["mrays_per_s"], live_bounces=_live_bounces(st),
-            launches={k: after[k] - before[k] for k in after},
+            launches=per_call[-1],
             history_share=(api.core.filter_state.history > 0).float()
             .mean().item(),
             image_finite=bool(np.isfinite(img).all()),
@@ -1259,6 +1406,11 @@ def filter_path(host, cam, dev, frames, size=512):
     out.update(mean_pass_ms=mean("pass_ms"), mean_filter_ms=mean("filter_ms"),
                mean_frame_ms=mean("frame_ms"),
                min_history_share=min(f["history_share"] for f in fs))
+    # one more frame, profiled: the pass's graph replayed
+    out["profile"] = _profile_replay(lambda: (move(), api.render()), dev,
+                                     "[filter profile] ", per_call)
+    out.update(launches_per_call=per_call,
+               replay_kernels=out["profile"]["kernel_launches"])
     filtered = api.get_image()
 
     # the raw 1-spp frame of the same (unjittered) view
@@ -1268,9 +1420,6 @@ def filter_path(host, cam, dev, frames, size=512):
     raw_api.render()
     out.update(filtered_neighbour_var=_neighbour_var(filtered),
                raw_neighbour_var=_neighbour_var(raw_api.get_image()))
-
-    out["profile"] = _profile(lambda: (move(), api.render()), dev,
-                              "[filter profile] ")
 
     # the filter alone, on one pass's G-buffers and the core's state
     core = api.core
@@ -1299,12 +1448,12 @@ def filter_path(host, cam, dev, frames, size=512):
                                     if k not in ("frames", "profile")}),
           flush=True)
     # the filter core's render_pass_auto runs render_pass_unrolled on the
-    # card: each kernel launches once every bounce, live or not
+    # card, captured at the second frame: each kernel launches once every
+    # bounce, live or not, and every later frame replays that graph
+    _replay_gates("[filter] ", cfg, per_call,
+                  ("eager", "capture") + ("replay",) * (frames + 1),
+                  out["replay_kernels"])
     for f in fs:
-        want = {k: cfg.max_path_length for k in f["launches"]}
-        if f["launches"] != want:
-            raise AssertionError("each kernel must launch once per bounce: "
-                                 f"{f}")
         if not f["image_finite"]:
             raise AssertionError(f"filtered frame not finite: {f}")
         if f["history_share"] <= 0.0:
@@ -2476,77 +2625,75 @@ def _all_counts():
 
 def cluster_main(scene, view, cfg, dev, passes):
     """[cluster] (b): render_pass_auto with intersector="cluster" (the main
-    path's configuration otherwise), 1 warm-up and `passes` timed passes,
-    each launching each cluster kernel max_path_length times and the BVH4
-    kernels never; the image against the "auto" passes of the same run
-    (FRAC_BAD_MAX, MEAN_REL_MAX: only t-ties between the two structures
-    may differ); one profiled pass. Returns the numbers."""
+    path's configuration otherwise), 2 warm-ups (eager, capture) and
+    `passes` timed passes, each replaying the graph, and one profiled
+    replay, which runs each cluster kernel max_path_length times and the
+    BVH4 kernels never (_replay_gates); the image against the "auto"
+    passes of the same run (FRAC_BAD_MAX, MEAN_REL_MAX: only t-ties
+    between the two structures may differ). Returns the numbers."""
     import torch
     from lighthouse2_tpu_torch.render.wavefront import (
         AccumState, finalize, render_pass_auto)
     ccfg = dataclasses.replace(cfg, intersector="cluster")
     st_auto = AccumState.make(cfg, dev)
-    for _ in range(passes + 1):
+    for _ in range(passes + 2):     # as many passes as the cluster run's
         st_auto, _ = render_pass_auto(scene, view, st_auto, cfg)
     state = AccumState.make(ccfg, dev)
     _peak_memory(dev, reset=True)
     _zero_counts()
-    counts = [_all_counts()]
+    per_call = []
+    one = lambda: render_pass_auto(scene, view, state, ccfg)
     t0 = time.perf_counter()
-    state, _ = render_pass_auto(scene, view, state, ccfg)          # warm-up
-    counts.append(_all_counts())
+    for _ in range(2):      # warm-up: the eager pass, the capturing pass
+        state, _ = _tallied(one, per_call)
     _sync(dev)
     warm_s = time.perf_counter() - t0
     all_stats = []
     t0 = time.perf_counter()
     for _ in range(passes):
-        state, stats = render_pass_auto(scene, view, state, ccfg)
+        state, stats = _tallied(one, per_call)
         all_stats.append(stats)
-        counts.append(_all_counts())
     _sync(dev)
     dt = time.perf_counter() - t0
     launches = _all_counts()
-    per_pass = [_launch_deltas(a, b) for a, b in zip(counts, counts[1:])]
+    peak = _peak_memory(dev)
+    prof = _profile_replay(one, dev, "[cluster profile] ", per_call)
     rays = sum(int(s["total_extension"]) + int(s["total_shadow"])
                for s in all_stats)
     img, img_auto = finalize(state), finalize(st_auto)
     res = dict(
         passes=passes, seconds=dt, warmup_seconds=warm_s,
         mrays_per_s=rays / dt / 1e6, rays=rays, ms_per_pass=dt * 1e3 / passes,
-        launches=launches, launches_per_pass=per_pass,
-        max_memory_allocated=_peak_memory(dev),
+        launches=launches, launches_per_call=per_call,
+        replay_kernels=prof["kernel_launches"], max_memory_allocated=peak,
         image_mean=img.mean().item(), image_mean_auto=img_auto.mean().item(),
         image_finite=bool(torch.isfinite(img).all()),
         agreement=_image_agreement(img.cpu().numpy(),
                                    img_auto.cpu().numpy()))
     print("[cluster main] " + json.dumps(res), flush=True)
-    want = dict(trace_closest=0, trace_occluded=0,
-                cluster_closest=cfg.max_path_length,
-                cluster_occluded=cfg.max_path_length)
-    if any(p != want for p in per_pass):
-        raise AssertionError(f"a cluster pass must launch {want}, got "
-                             f"{per_pass}")
+    _replay_gates("[cluster main] ", ccfg, per_call,
+                  ("eager", "capture") + ("replay",) * (passes + 1),
+                  prof["kernel_launches"])
     a = res["agreement"]
     if not (res["image_finite"] and a["frac_bad"] < FRAC_BAD_MAX
             and a["mean_rel"] < MEAN_REL_MAX):
         raise AssertionError(f"the cluster image differs from auto's: {a}")
-    res["profile"] = _profile(
-        lambda: render_pass_auto(scene, view, state, ccfg), dev,
-        "[cluster profile] ")
+    res["profile"] = prof
     return res
 
 
 def cluster_train(scene, view, cfg, dev, auto_prof):
-    """[cluster] (c): one warm-up and one timed fwd+bwd step of
-    regen_value_and_grad on the cluster path (grads "all": colours, light
-    radiance, per-vertex offsets; remat), its launches (16 + 16 cluster,
-    no BVH4), ms and peak memory; the same step on the "auto" path from the
-    same state: the loss within LOSS_RTOL and each gradient group within
-    GRAD_RTOL, relative L2 (tests/test_torch_grad.py's bounds: both paths
-    take the same samples and hit the same triangles but for t-ties, the
-    offsets' refine terms round differently); the step profiled for the
-    TRAIN_SHARES of its device time, beside `auto_prof`, the "auto" step
-    profiled in [train profile]."""
+    """[cluster] (c): two warm-ups (eager, capture), one timed fwd+bwd
+    step of regen_value_and_grad on the cluster path (grads "all":
+    colours, light radiance, per-vertex offsets; remat) and one profiled,
+    both replays, the profiled one running 16 + 16 cluster kernels and no
+    BVH4 one (_replay_gates), ms and peak memory; the same step on the
+    "auto" path from the same state: the loss within LOSS_RTOL and each
+    gradient group within GRAD_RTOL, relative L2 (tests/test_torch_grad.py's
+    bounds: both paths take the same samples and hit the same triangles
+    but for t-ties, the offsets' refine terms round differently); the
+    profiled step's TRAIN_SHARES of its device time, beside `auto_prof`,
+    the "auto" step profiled in [train profile]."""
     import torch
     from lighthouse2_tpu_torch.diff.render import regen_value_and_grad
     from lighthouse2_tpu_torch.render.wavefront import (
@@ -2555,24 +2702,27 @@ def cluster_train(scene, view, cfg, dev, auto_prof):
     ccfg = dataclasses.replace(acfg, intersector="cluster")
     params, target = _headline_params(scene, cfg.width, dev)
     state = ensure_regen_state(view, AccumState.make(acfg, dev), acfg)
-    regen_value_and_grad(scene, view, state, ccfg, target, params)  # warm-up
+    step = lambda: regen_value_and_grad(scene, view, state, ccfg, target,
+                                        params)
+    _zero_counts()
+    per_call = []
+    for _ in range(2):      # warm-up: the eager step, the capturing step
+        _tallied(step, per_call)
     _sync(dev)
     _peak_memory(dev, reset=True)
-    _zero_counts()
     t0 = time.perf_counter()
-    loss_c, g_c, _ = regen_value_and_grad(scene, view, state, ccfg, target,
-                                          params)
+    loss_c, g_c, _ = _tallied(step, per_call)
     _sync(dev)
     ms = (time.perf_counter() - t0) * 1e3
-    launches = _all_counts()
     peak = _peak_memory(dev)
+    prof = _profile_replay(step, dev, "[cluster train profile] ", per_call,
+                           shares=TRAIN_SHARES, cpu=False)
     loss_a, g_a, _ = regen_value_and_grad(scene, view, state, acfg, target,
                                           params)
     rel = {k: ((g_c[k] - g_a[k]).norm() / g_a[k].norm()).item() for k in g_a}
-    prof = _profile(lambda: regen_value_and_grad(scene, view, state, ccfg,
-                                                 target, params),
-                    dev, "[cluster train profile] ", TRAIN_SHARES)
-    res = dict(ms_per_step=ms, max_memory_allocated=peak, launches=launches,
+    res = dict(ms_per_step=ms, max_memory_allocated=peak,
+               launches_per_call=per_call,
+               replay_kernels=prof["kernel_launches"],
                loss=loss_c.item(), loss_auto=loss_a.item(),
                loss_rel_diff=abs(loss_c.item() - loss_a.item())
                / max(abs(loss_a.item()), 1e-30),
@@ -2582,12 +2732,9 @@ def cluster_train(scene, view, cfg, dev, auto_prof):
                device_ms=dict(cluster=prof["device_ms"],
                               auto=auto_prof["device_ms"]))
     print("[cluster train] " + json.dumps(res), flush=True)
-    want = dict(trace_closest=0, trace_occluded=0,
-                cluster_closest=cfg.max_path_length,
-                cluster_occluded=cfg.max_path_length)
-    if launches != want:
-        raise AssertionError(f"a cluster fwd+bwd step must launch {want}, "
-                             f"got {launches}")
+    _replay_gates("[cluster train] ", ccfg, per_call,
+                  ("eager", "capture", "replay", "replay"),
+                  prof["kernel_launches"])
     if res["loss_rel_diff"] > LOSS_RTOL or any(
             rel[k] > b for k, b in GRAD_RTOL.items()):
         raise AssertionError("cluster and auto fwd+bwd steps disagree")
@@ -2817,9 +2964,11 @@ def executors_path(scene, view, dev, size=512, path_len=16):
                        max_path_length=path_len)
     rcfg = dataclasses.replace(cfg, path_regen=True)
     out, ref = {}, {}
-    for name, fn_name, family, readback in EXEC_FORMS:
+    for name, fn_name, family, readback, captured in EXEC_FORMS:
         fn = getattr(wf, fn_name)
         c = rcfg if family == "regen" else cfg
+        # no graph is left from an earlier form: (a) runs eagerly
+        _clear_graphs()
         _zero_counts()
         one = lambda: fn(scene, view, wf.AccumState.make(c, dev), c)
         # (a) one pass from a fresh state, also the warm-up of (b). On the
@@ -2854,19 +3003,31 @@ def executors_path(scene, view, dev, size=512, path_len=16):
                                                  rs.pixel_count))
         r["stats_equal"] = all(r[k] == rr[k] for k in (
             "extension_rays", "shadow_rays", "samples_completed"))
-        # (b) EXEC_PASSES timed passes after (a) and one profiled pass
-        st = state
+        # (b) one more pass (a graph entry point's capture), EXEC_PASSES
+        # timed passes and one profiled pass
+        per_call = []
+        st, _ = _tallied(lambda: fn(scene, view, state, c), per_call)
         _sync(dev)
         t0 = time.perf_counter()
         for _ in range(EXEC_PASSES):
-            st, _ = fn(scene, view, st, c)
+            st, _ = _tallied(lambda: fn(scene, view, st, c), per_call)
         _sync(dev)
         r["wall_ms"] = (time.perf_counter() - t0) * 1e3 / EXEC_PASSES
-        prof = _profile(lambda: fn(scene, view, st, c), dev,
-                        f"[executors] {name} profile: ", cpu=False)
+        prof = _profile_replay(lambda: fn(scene, view, st, c), dev,
+                               f"[executors] {name} profile: ", per_call,
+                               cpu=False)
         r.update(device_ms=prof["device_ms"],
                  device_busy_share=prof["device_busy_share"],
-                 device_launches=prof["device_launches"])
+                 device_launches=prof["device_launches"],
+                 calls=[_call_kind(x, c) for x in per_call],
+                 profiled_kernels=prof["kernel_launches"])
+        if captured:
+            _replay_gates(f"[executors] {name}: ", c, per_call,
+                          ("capture",) + ("replay",) * (EXEC_PASSES + 1),
+                          prof["kernel_launches"])
+        elif any(x["replays"] for x in per_call):
+            raise AssertionError(f"[executors] {name} replayed a graph: "
+                                 f"{per_call}")
         print(f"[executors] {name}: " + json.dumps(r), flush=True)
         out[name] = r
     out["staged_profile"] = staged_profile(scene, view, cfg, dev)
@@ -2882,6 +3043,402 @@ def executors_path(scene, view, dev, size=512, path_len=16):
                        "of each kernel, one a live bounce")
     if bad:
         raise AssertionError("[executors] " + "; ".join(bad))
+    return out
+
+
+def _captured(name):
+    """The CapturedCall (render/graphs.py) of a graph entry point."""
+    from lighthouse2_tpu_torch.diff import render as diff_render
+    from lighthouse2_tpu_torch.render import wavefront as wf
+    return dict(render_pass_unrolled=wf._unrolled_graph,
+                _render_pass_regen_jit=wf._regen_graph,
+                regen_value_and_grad=diff_render._step_graph)[name]
+
+
+def _results(x):
+    """(structure, tensors) of a result, in render/graphs.py's walk order."""
+    from lighthouse2_tpu_torch.render import graphs
+    tensors = []
+    return graphs._walk(x, tensors), tensors
+
+
+def _unequal(got, want):
+    """Indices of the tensors of `got` that differ from `want`'s bit for bit
+    (NaN == NaN); [-1] if the structures differ."""
+    import torch
+    sg, tg = _results(got)
+    sw, tw = _results(want)
+    if sg != sw:
+        return [-1]
+    bits = lambda t: t.view(torch.int32) if t.dtype == torch.float32 else t
+    return [i for i, (a, b) in enumerate(zip(tg, tw))
+            if not torch.equal(bits(a), bits(b))]
+
+
+def _timed(fn, dev, n):
+    """fn() n times, each closed by a synchronize: (host ms of each, the
+    last result)."""
+    ms, out = [], None
+    for _ in range(n):
+        _sync(dev)
+        t0 = time.perf_counter()
+        out = fn()
+        _sync(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return ms, out
+
+
+def _kernel_syms(cfg):
+    """(wrapper counts, profiler kernel names) of the config's kernels."""
+    if cfg.intersector == "cluster":
+        return (("cluster_closest", "cluster_occluded"),
+                ("cluster_closest_kernel", "cluster_occluded_kernel"))
+    return (("trace_closest", "trace_occluded"),
+            ("closest_kernel", "occluded_kernel"))
+
+
+def _graph_calls(call, dev, n, per_call):
+    """n calls of a graph entry point (warm-up, capture, replays), each
+    closed by a synchronize, its _tally deltas appended to `per_call`:
+    (results, host ms of each call)."""
+    results, ms = [], []
+    for _ in range(n):
+        _sync(dev)
+        t0 = time.perf_counter()
+        results.append(_tallied(call, per_call))
+        _sync(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return results, ms
+
+
+def graph_pass_run(tag, name, eager, scene, view, cfg, dev):
+    """[graphs] (a) for one graph entry point of render/wavefront.py: from
+    one state, GRAPH_PASSES passes through its eager body and GRAPH_PASSES
+    calls of the entry point (warm-up, capture, replays) equal bit for bit,
+    result by result (accumulator, pixel counts, pool, cam_seed,
+    sample_count, stats); GRAPH_TIMED more of each timed (medians), one
+    replay under the sync gate, one of each profiled; every call of the
+    entry point the kind _replay_gates wants and the profiled replay's
+    kernels; the capture's and instantiation's seconds and the pool's
+    memory. Returns (numbers, the last state)."""
+    import statistics
+    import torch
+    from lighthouse2_tpu_torch.render import wavefront as wf
+
+    entry_fn = getattr(wf, name)
+    state0 = wf.AccumState.make(cfg, dev)
+    if cfg.path_regen:
+        state0 = wf.ensure_regen_state(view, state0, cfg)
+    _peak_memory(dev, reset=True)
+    want, st = [], state0
+    for _ in range(GRAPH_PASSES):
+        st, stats = eager(scene, view, st, cfg)
+        want.append((st, stats))
+    eager_ms, _ = _timed(lambda: eager(scene, view, st, cfg), dev,
+                         GRAPH_TIMED)
+    eager_peak = _peak_memory(dev)
+    eager_prof = _profile(lambda: eager(scene, view, st, cfg), dev,
+                          f"[graphs] {tag} eager profile: ", cpu=False)
+
+    _captured(name).clear()
+    torch.cuda.empty_cache()
+    reserved0 = torch.cuda.memory_reserved(dev)
+    _peak_memory(dev, reset=True)
+    held, per_call = [state0], []
+
+    def call():
+        out = entry_fn(scene, view, held[-1], cfg)
+        held.append(out[0])
+        return out
+    got, call_ms = _graph_calls(call, dev, GRAPH_PASSES, per_call)
+    e = _captured(name).entry
+    pool = torch.cuda.memory_reserved(dev) - reserved0
+    unequal = [_unequal(g, w) for g, w in zip(got, want)]
+    st = got[-1][0]
+    replay = lambda: _tallied(lambda: entry_fn(scene, view, st, cfg),
+                              per_call)
+    replay_ms, _ = _timed(replay, dev, GRAPH_TIMED)
+    _no_sync(replay)
+    graph_peak = _peak_memory(dev)
+    replay_prof = _profile_replay(lambda: entry_fn(scene, view, st, cfg),
+                                  dev, f"[graphs] {tag} replay profile: ",
+                                  per_call, cpu=False)
+    res = dict(
+        entry=name, intersector=cfg.intersector, path_regen=cfg.path_regen,
+        equal_calls=[not u for u in unequal], unequal_tensors=unequal,
+        call_ms=call_ms, launches_per_call=per_call,
+        calls=[_call_kind(c, cfg) for c in per_call],
+        eager_ms=eager_ms, replay_ms=replay_ms,
+        wall_ms_eager=statistics.median(eager_ms),
+        wall_ms_replay=statistics.median(replay_ms),
+        device_ms_eager=eager_prof["device_ms"],
+        device_ms_replay=replay_prof["device_ms"],
+        busy_eager=eager_prof["device_ms"] / statistics.median(eager_ms),
+        busy_replay=replay_prof["device_ms"] / statistics.median(replay_ms),
+        busy_eager_profiled=eager_prof["device_busy_share"],
+        busy_replay_profiled=replay_prof["device_busy_share"],
+        launches_eager=eager_prof["device_launches"],
+        launches_replay=replay_prof["device_launches"],
+        capture_seconds=e.capture_seconds,
+        instantiate_seconds=e.instantiate_seconds,
+        pool_reserved_bytes=pool, peak_eager=eager_peak,
+        peak_graph=graph_peak, replay_kernels=replay_prof["kernel_launches"],
+        replay_kernel_ms_per_launch=replay_prof["kernel_ms_per_launch"])
+    print(f"[graphs] {tag}: " + json.dumps(res), flush=True)
+    if not all(res["equal_calls"]):
+        raise AssertionError(f"[graphs] {tag}: graph and eager results "
+                             f"differ: {unequal}")
+    # the calls after the capture, the timed, the gated and the profiled
+    # replays
+    _replay_gates(f"[graphs] {tag}: ", cfg, per_call, ("eager", "capture")
+                  + ("replay",) * (GRAPH_PASSES - 2 + GRAPH_TIMED + 2),
+                  replay_prof["kernel_launches"])
+    return res, st
+
+
+def graph_changes(scene, cam, view, cfg, state, dev):
+    """[graphs] (b), on the live regen graph of (a): a moved camera
+    (GRAPH_MOVE) and a new colour for every material (its channels
+    reversed), the shapes kept, each one replay equal to its eager pass
+    from the same state; then a Cornell box synced to the card (other
+    shapes) takes a new key, whose first call runs eagerly and equals the
+    eager pass."""
+    import copy
+    import numpy as np
+    from lighthouse2_tpu_torch.diff.params import set_material_fields
+    from lighthouse2_tpu_torch.render import wavefront as wf
+    from lighthouse2_tpu_torch.scene.presets import cornell_box
+
+    name = "_render_pass_regen_jit"
+    e = _captured(name).entry
+    moved = copy.deepcopy(cam)
+    moved.position = moved.position + np.float32(GRAPH_MOVE)
+    recoloured = set_material_fields(
+        scene, color=scene.materials.color.flip(-1).contiguous())
+    res = {}
+    for tag, sc, vw in (("moved_camera", scene, moved.get_view(dev)),
+                        ("new_colour", recoloured, view)):
+        c = []
+        got = _tallied(lambda: wf._render_pass_regen_jit(sc, vw, state, cfg),
+                       c)
+        want = wf._regen_pass(sc, vw, state, cfg)
+        res[tag] = dict(replayed=_captured(name).entry is e
+                        and _call_kind(c[0], cfg) == "replay",
+                        unequal_tensors=_unequal(got, want),
+                        image_mean=wf.finalize(got[0]).mean().item())
+    host_c, cam_c = cornell_box(cfg.width, cfg.height)
+    sc, vw = host_c.sync(dev), cam_c.get_view(dev)
+    st = wf.ensure_regen_state(vw, wf.AccumState.make(cfg, dev), cfg)
+    got = wf._render_pass_regen_jit(sc, vw, st, cfg)
+    e2 = _captured(name).entry
+    res["other_shapes"] = dict(
+        new_key=e2 is not e and e2.key != e.key, eager=e2.graph is None,
+        unequal_tensors=_unequal(got, wf._regen_pass(sc, vw, st, cfg)))
+    print("[graphs] changes between replays: " + json.dumps(res), flush=True)
+    bad = [k for k, r in res.items()
+           if r["unequal_tensors"] or not r.get("replayed", True)
+           or not r.get("new_key", True) or not r.get("eager", True)]
+    if bad:
+        raise AssertionError(f"[graphs] changes between replays: {bad}")
+    return res
+
+
+def _grad_rel(a, b):
+    return {k: ((a[k] - b[k]).norm() / b[k].norm().clamp(min=1e-30)).item()
+            for k in b}
+
+
+def _spread(eager_sets):
+    """Per gradient group, the largest relative L2 distance between two
+    eager steps from one input, over the sets of such steps."""
+    return {k: max(_grad_rel(a, b)[k] for es in eager_sets
+                   for i, a in enumerate(es) for b in es[:i])
+            for k in eager_sets[0][0]}
+
+
+def _nearest(got, eagers):
+    """Per gradient group, the relative L2 distance of `got` to the
+    nearest of `eagers`."""
+    return {k: min(_grad_rel(got, e)[k] for e in eagers) for k in got}
+
+
+def graph_step_run(tag, scene, view, cfg, dev):
+    """[graphs] (c): the headline step (regen_value_and_grad, grads "all",
+    remat) from one state: GRAPH_PASSES eager steps (diff/render.py
+    fb_pass, its eager body) and GRAPH_PASSES calls of the entry point
+    (warm-up, capture, replays); GRAPH_TIMED timed steps of each
+    (medians), one replay profiled; then GRAPH_OPT_STEPS replays whose
+    parameter leaves (requiring grad) torch.optim.Adam steps in place
+    between them from the replays' gradients, each against fb_pass on the
+    same leaves and state. For every compared call: loss and state bit-
+    equal; each gradient group equal, or, where not (the cluster path's
+    re-attach backward sums with atomics), within the eager spread:
+    eager steps from its inputs (GRAPH_SPREAD_STEPS), and the graph step
+    no farther from the nearest of them (_nearest) than two eager steps
+    from one input are apart, at most, over the compared calls (_spread).
+    Fwd+bwd Mrays/s (the rays of one forward stats pass,
+    bench.py:129-134), peak memory, the replay's kernels by the profiler
+    (_replay_gates). Returns the numbers."""
+    import statistics
+    from lighthouse2_tpu_torch.diff.render import fb_pass, regen_value_and_grad
+    from lighthouse2_tpu_torch.render import wavefront as wf
+    import torch
+
+    name = "regen_value_and_grad"
+    params, target = _headline_params(scene, cfg.width, dev)
+    state0 = wf.ensure_regen_state(view, wf.AccumState.make(cfg, dev), cfg)
+    _, stats0 = wf._regen_pass(scene, view, state0, cfg)
+    rays = int(stats0["total_extension"]) + int(stats0["total_shadow"])
+    _peak_memory(dev, reset=True)
+    held = [state0]
+
+    def eager():
+        out = fb_pass(scene, view, held[-1], cfg, target, params)
+        held.append(out[2])
+        return out
+    eager_ms, want = [], []
+    for _ in range(GRAPH_TIMED):
+        ms, out = _timed(eager, dev, 1)
+        eager_ms += ms
+        want.append(out)
+    eager_peak = _peak_memory(dev)
+    eager_prof = _profile(lambda: fb_pass(scene, view, state0, cfg, target,
+                                          params), dev,
+                          f"[graphs] {tag} eager profile: ", cpu=False)
+
+    _captured(name).clear()
+    torch.cuda.empty_cache()
+    reserved0 = torch.cuda.memory_reserved(dev)
+    _peak_memory(dev, reset=True)
+    held, per_call = [state0], []
+
+    def call():
+        out = regen_value_and_grad(scene, view, held[-1], cfg, target, params)
+        held.append(out[2])
+        return out
+    got, call_ms = _graph_calls(call, dev, GRAPH_PASSES, per_call)
+    e = _captured(name).entry
+    pool = torch.cuda.memory_reserved(dev) - reserved0
+    # (graph result, eager result, the inputs both started from)
+    compared = [(g, w, (s, params))
+                for g, w, s in zip(got, want, held[:GRAPH_PASSES])]
+    st = got[-1][2]
+    step = lambda: regen_value_and_grad(scene, view, st, cfg, target, params)
+    replay_ms, _ = _timed(lambda: _tallied(step, per_call), dev, GRAPH_TIMED)
+    graph_peak = _peak_memory(dev)
+    replay_prof = _profile_replay(step, dev, f"[graphs] {tag} replay "
+                                  "profile: ", per_call, cpu=False)
+
+    # an optimizer's in-place step between replays: the replay must copy
+    # the stepped leaves (same storage, a new version) into the graph
+    leaves = {k: v.detach().clone().requires_grad_()
+              for k, v in params.items()}
+    opt = torch.optim.Adam(list(leaves.values()), lr=GRAPH_OPT_LR)
+    for _ in range(GRAPH_OPT_STEPS):
+        snap = {k: v.detach().clone() for k, v in leaves.items()}
+        out = _tallied(lambda: regen_value_and_grad(scene, view, st, cfg,
+                                                    target, leaves),
+                       per_call)
+        compared.append((out, fb_pass(scene, view, st, cfg, target, snap),
+                         (st, snap)))
+        for k, g in out[1].items():
+            leaves[k].grad = g
+        opt.step()
+        st = out[2]
+
+    fwd = [_unequal((g[0], g[2]), (w[0], w[2])) for g, w, _ in compared]
+    grad_equal = [not _unequal(g[1], w[1]) for g, w, _ in compared]
+    # eager steps from the inputs of each step whose gradients differ
+    sets = {i: [w[1]] for i, ((_, w, _), eq) in enumerate(zip(compared,
+                                                              grad_equal))
+            if not eq}
+    spread, nearest = None, {}
+    for n in GRAPH_SPREAD_STEPS if sets else ():
+        for i, es in sets.items():
+            s, p = compared[i][2]
+            es += [fb_pass(scene, view, s, cfg, target, p)[1]
+                   for _ in range(n - len(es))]
+        spread = _spread(list(sets.values()))
+        nearest = {i: _nearest(compared[i][0][1], es)
+                   for i, es in sets.items()}
+        if all(v == 0.0 or v <= spread[k]
+               for near in nearest.values() for k, v in near.items()):
+            break
+    res = dict(
+        intersector=cfg.intersector, rays_per_step=rays,
+        forward_unequal=fwd, grads_equal=grad_equal,
+        grad_rel_l2=[_grad_rel(g[1], w[1]) for g, w, _ in compared],
+        grad_nearest_eager=[nearest.get(i) for i in range(len(compared))],
+        grad_eager_spread=spread,
+        eager_steps_a_set=len(next(iter(sets.values()))) if sets else None,
+        call_ms=call_ms,
+        launches_per_call=per_call,
+        calls=[_call_kind(c, cfg) for c in per_call],
+        eager_ms=eager_ms, replay_ms=replay_ms,
+        ms_step_eager=statistics.median(eager_ms),
+        ms_step_replay=statistics.median(replay_ms),
+        mrays_per_s_eager=rays / statistics.median(eager_ms) / 1e3,
+        mrays_per_s_replay=rays / statistics.median(replay_ms) / 1e3,
+        device_ms_eager=eager_prof["device_ms"],
+        device_ms_replay=replay_prof["device_ms"],
+        busy_eager=eager_prof["device_ms"] / statistics.median(eager_ms),
+        busy_replay=replay_prof["device_ms"] / statistics.median(replay_ms),
+        busy_eager_profiled=eager_prof["device_busy_share"],
+        busy_replay_profiled=replay_prof["device_busy_share"],
+        launches_eager=eager_prof["device_launches"],
+        launches_replay=replay_prof["device_launches"],
+        capture_seconds=e.capture_seconds,
+        instantiate_seconds=e.instantiate_seconds,
+        pool_reserved_bytes=pool, peak_eager=eager_peak,
+        peak_graph=graph_peak, replay_kernels=replay_prof["kernel_launches"])
+    print(f"[graphs] {tag}: " + json.dumps(res), flush=True)
+    bad = [i for i, u in enumerate(fwd)
+           if u or (i in nearest and not all(
+               v == 0.0 or v <= spread[k] for k, v in nearest[i].items()))]
+    if bad:
+        raise AssertionError(f"[graphs] {tag}: graph and eager steps differ "
+                             f"at compared calls {bad}")
+    _replay_gates(f"[graphs] {tag}: ", cfg, per_call, ("eager", "capture")
+                  + ("replay",) * (GRAPH_PASSES - 2 + GRAPH_TIMED + 1
+                                   + GRAPH_OPT_STEPS),
+                  replay_prof["kernel_launches"])
+    return res
+
+
+def graphs_path(scene, cscene, view, cam, dev, size=512, path_len=16):
+    """Phase 21, [graphs]: the three entry points render/graphs.py captures,
+    at the main path's configuration (bathroom size^2, spp 1, path
+    `path_len`, Lambert): (a) graph_pass_run for the regen pass on "auto",
+    then (b) graph_changes on its graph, the unrolled pass on "auto" and
+    the regen pass on "cluster" (`cscene`, synced with its tiles); (c)
+    graph_step_run for the fwd+bwd step on "auto" and on "cluster".
+    Returns the numbers by run."""
+    import dataclasses as dc
+    from lighthouse2_tpu_torch.core.types import RenderConfig
+    from lighthouse2_tpu_torch.render import wavefront as wf
+
+    base = RenderConfig(width=size, height=size, spp_per_pass=1,
+                        max_path_length=path_len)
+    regen = dc.replace(base, path_regen=True)
+    out = {}
+    out["regen_auto"], st = graph_pass_run(
+        "regen auto", "_render_pass_regen_jit", wf._regen_pass, scene, view,
+        regen, dev)
+    out["changes"] = graph_changes(scene, cam, view, regen, st, dev)
+    out["unrolled_auto"], _ = graph_pass_run(
+        "unrolled auto", "render_pass_unrolled", wf._unrolled_pass, scene,
+        view, base, dev)
+    out["regen_cluster"], _ = graph_pass_run(
+        "regen cluster", "_render_pass_regen_jit", wf._regen_pass, cscene,
+        view, dc.replace(regen, intersector="cluster"), dev)
+    step = dc.replace(regen, remat=True)
+    out["step_auto"] = graph_step_run("step auto", scene, view, step, dev)
+    out["step_cluster"] = graph_step_run(
+        "step cluster", cscene, view, dc.replace(step, intersector="cluster"),
+        dev)
+    for name in ("render_pass_unrolled", "_render_pass_regen_jit",
+                 "regen_value_and_grad"):
+        _captured(name).clear()
     return out
 
 
@@ -2914,6 +3471,14 @@ def main() -> int:
         print("[env] " + _sh(["/usr/local/cuda/bin/nvcc", "--version"])
               .splitlines()[-1], flush=True)
 
+    secs, mark = {}, [time.perf_counter()]
+
+    def lap(phase):
+        """The seconds since the last lap, under `phase`."""
+        now = time.perf_counter()
+        secs[phase] = now - mark[0]
+        mark[0] = now
+
     t0 = time.perf_counter()
     # one nvcc for each source, started together
     with ThreadPoolExecutor(len(SOURCES)) as pool:
@@ -2922,6 +3487,7 @@ def main() -> int:
         print(f"[build] {so}\n{log.strip()}", flush=True)
     print(f"[build] {len(built)} libraries in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    lap("build")
 
     size, path_len = 512, 16
     cfg = RenderConfig(width=size, height=size, spp_per_pass=1,
@@ -2938,20 +3504,24 @@ def main() -> int:
           f"numpy tree {single.nbox.shape[1]} (depth {single.depth}) in "
           f"{single.node4.shape[0]} (depth {single.depth4})", flush=True)
 
+    lap("scene")
     kern = check_kernels(scene, view, cfg, dev, KERNEL_ITERS, PLAIN_ITERS)
     single_ms = time_kernels(trees["single_level_numpy"], scene, view, cfg,
                              dev, KERNEL_ITERS)
     del trees
     print("[kernels] single-level numpy tree, same batches: "
           + json.dumps(single_ms), flush=True)
+    lap("kernels")
     main_res, state = main_path(scene, view, cfg, dev, passes=3)
     print(f"[main] {main_res['mrays_per_s']:.3f} Mrays/s on {card} "
           f"(bathroom {size}x{size}, path {path_len}, regen)", flush=True)
-    lambert_prof = profile_pass(scene, view, cfg, state, dev)
+    lambert_prof = main_res["profile"]
     reference_check(dev)
-    train_res, train_state = train_path(scene, view, cfg, dev, TRAIN_STEPS)
-    train_prof = profile_train_step(scene, view, cfg, train_state, dev)
+    lap("main")
+    train_res, _ = train_path(scene, view, cfg, dev, TRAIN_STEPS)
+    train_prof = train_res["profile"]
     grad_reference_check(dev)
+    lap("train")
 
     disney_res, api = disney_path(cfg, dev, DISNEY_PASSES)
     lambert_api = lambert_api_path(host, cam, cfg, dev, DISNEY_PASSES)
@@ -2962,7 +3532,7 @@ def main() -> int:
           f"{lambert_api['mean_ms_per_pass']:.1f} ms/pass; wall ratio "
           f"{disney_res['mean_ms_per_pass'] / lambert_api['mean_ms_per_pass']:.3f}"
           f")", flush=True)
-    disney_prof = _profile(lambda: api.render(), dev, "[disney profile] ")
+    disney_prof = disney_res["profile"]
     print("[disney profile] beside Lambert: " + json.dumps(dict(
         device_ms=dict(disney=disney_prof["device_ms"],
                        lambert=lambert_prof["device_ms"]),
@@ -2976,6 +3546,7 @@ def main() -> int:
     disney_train = disney_train_step(api, dev)
     grad_reference_check(dev, disney=True)
     golden_check(dev)
+    lap("disney_golden")
 
     anim_dir = tempfile.mkdtemp(prefix="chip_smoke_anim_", dir=BUILD_DIR)
     try:
@@ -2989,6 +3560,7 @@ def main() -> int:
                   os.path.join(anim_dir, "cli.png"))
     finally:
         shutil.rmtree(anim_dir, ignore_errors=True)
+    lap("anim_cli")
 
     filt = filter_path(host, cam, dev, FILTER_FRAMES)
     print(f"[filter] {filt['mean_frame_ms']:.1f} ms a frame = "
@@ -3000,6 +3572,7 @@ def main() -> int:
           f"history kept on >= {filt['min_history_share']:.1%} of pixels",
           flush=True)
     filter_reference(dev)
+    lap("filter")
     probe_res = probe_path(scene, cam, dev)
     app_dir = tempfile.mkdtemp(prefix="chip_smoke_apps_", dir=BUILD_DIR)
     try:
@@ -3007,6 +3580,7 @@ def main() -> int:
         ai_check(dev, app_dir)
     finally:
         shutil.rmtree(app_dir, ignore_errors=True)
+    lap("probe_apps")
 
     bcfg = dataclasses.replace(cfg, path_regen=False)
     bdpt = bdpt_path(host, cam, bcfg, dev, BDPT_PASSES)
@@ -3020,12 +3594,14 @@ def main() -> int:
           f"{bdpt['profile']['device_launches']} device launches; Disney "
           f"{bdpt['disney']['ms']:.1f} ms", flush=True)
     bdpt_reference(dev)
+    lap("bdpt")
     par = parallel_path(host, cam, dev, size, path_len)
     print(f"[parallel] sharded {min(par['sharded_ms']):.1f} ms, unsharded "
           f"{min(par['unsharded_ms']):.1f} ms a pass on {card} (one NCCL "
           f"rank, bathroom {size}x{size}, classic, path {path_len}); "
           f"{par['collective_bytes']['total_bytes']} bytes all-reduced a "
           "pass", flush=True)
+    lap("parallel")
     shard = scene_shard_path(host, cam, dev, size, path_len)
     rk = shard["ranks"]
     print(f"[scene shard] (a) one NCCL rank, 1x1: sharded "
@@ -3046,6 +3622,7 @@ def main() -> int:
           f"{rk['collective_bytes']['rays']['total_bytes']} B over rays a "
           f"pass a rank; pixels off {rk['agreement']['frac_bad']:.2e}",
           flush=True)
+    lap("scene_shard")
     default_scene = scene
     # the cluster tiles are cut for phase 19 only, so that no earlier phase
     # holds them
@@ -3065,6 +3642,7 @@ def main() -> int:
           f"{ct['shares']['cluster']['reattach_index_add']:.1%} of its device "
           f"time (the auto step's gather backward "
           f"{ct['shares']['auto']['gather_backward']:.1%})", flush=True)
+    lap("cluster")
     t0 = time.perf_counter()
     execs = executors_path(default_scene, view, dev, size, path_len)
     print("[executors] on " + card + ": " + json.dumps({
@@ -3072,6 +3650,17 @@ def main() -> int:
                                  "device_launches", "host_syncs")}
         for name, r in execs.items() if name != "staged_profile"})
         + f"; {time.perf_counter() - t0:.1f} s", flush=True)
+    lap("executors")
+    t0 = time.perf_counter()
+    graph_res = graphs_path(default_scene, scene, view, cam, dev, size,
+                            path_len)
+    print("[graphs] on " + card + ": " + json.dumps({
+        name: {k: r[k] for k in GRAPH_SUMMARY if k in r}
+        for name, r in graph_res.items() if name != "changes"})
+        + f"; {time.perf_counter() - t0:.1f} s", flush=True)
+    lap("graphs")
+    print("[seconds] by phase: " + json.dumps(secs) + f"; total "
+          f"{sum(secs.values()):.1f}", flush=True)
 
     rows = []
     for name, batch, line, sym, key in (
@@ -3083,14 +3672,13 @@ def main() -> int:
             name=name, route="cuda", source="lighthouse2_tpu_torch/csrc/trace.cu",
             replaces=f"lighthouse2_tpu/render/kernels/trace.py:{line}",
             launches=main_res["launches"][name],
-            launches_fwd_bwd_per_step=train_res["launches_per_step"][name],
-            launches_disney_per_pass=disney_res["launches"][name]
-            // DISNEY_PASSES,
-            launches_disney_fwd_bwd_step=disney_train["launches"][name],
+            launches_main=_launch_summary(main_res, name, sym),
+            launches_fwd_bwd=_launch_summary(train_res, name, sym),
+            launches_disney=_launch_summary(disney_res, name, sym),
+            launches_disney_fwd_bwd=_launch_summary(disney_train, name, sym),
             launches_anim_per_frame=[f["launches"][name]
                                      for f in anim["frames"]],
-            launches_filter_per_frame=[f["launches"][name]
-                                       for f in filt["frames"]],
+            launches_filter=_launch_summary(filt, name, sym),
             launches_probe=dict(
                 heatmap=probe_res["launches_heatmap"][name],
                 probe_pixel_grid=probe_res["launches_probe_grid"][name],
@@ -3100,6 +3688,11 @@ def main() -> int:
             launches_executors_per_pass={
                 f: r["launches"][name] for f, r in execs.items()
                 if f != "staged_profile"},
+            launches_graph_calls={
+                f: [c[name] for c in graph_res[f]["launches_per_call"]]
+                for f in ("regen_auto", "unrolled_auto", "step_auto")},
+            launches_graph_replay_profiled=graph_res["regen_auto"][
+                "replay_kernels"][sym],
             launches_sharded_per_pass=par["launches_per_sharded_pass"][-1][
                 name],
             launches_scene_sharded_per_pass=shard[
@@ -3126,11 +3719,17 @@ def main() -> int:
             source="lighthouse2_tpu_torch/csrc/cluster_trace.cu",
             replaces=f"lighthouse2_tpu/render/kernels/trace.py:{line}",
             launches=cm["launches"][name],
-            launches_fwd_bwd_per_step=ct["launches"][name],
+            launches_main=_launch_summary(cm, name, sym),
+            launches_fwd_bwd=_launch_summary(ct, name, sym),
             launches_bdpt_per_pass=clus["bdpt_shard"]["bdpt"]["launches"][
                 name],
             launches_scene_sharded_per_pass=clus["bdpt_shard"][
                 "scene_sharded"]["launches"][name],
+            launches_graph_calls={
+                f: [c[name] for c in graph_res[f]["launches_per_call"]]
+                for f in ("regen_cluster", "step_cluster")},
+            launches_graph_replay_profiled=graph_res["regen_cluster"][
+                "replay_kernels"][sym],
             main_path_ms_per_launch=cm["profile"]["kernel_ms_per_launch"][
                 sym],
             ms_by_batch={bt: v["ms"] for bt, v in

@@ -14,7 +14,10 @@ Differences from the JAX package:
     optimizer(leaves) -> torch.optim.Optimizer;
   - the checkpoint holds the optimizer's state_dict with its tensors as
     numpy arrays, where the JAX package pickles the optax state's leaves;
-  - no jit: each call runs the executors eagerly.
+  - jax.jit's counterpart is a CUDA graph (render/graphs.py): on a card
+    regen_value_and_grad, the step JAX jits, is captured at its second
+    call with a key and replayed; fb_pass is its eager body. render_image,
+    render_image_jit and optimize's loss run eagerly.
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ from lighthouse2_tpu_torch.core.types import RenderConfig, ViewPyramid
 from lighthouse2_tpu_torch.diff.fd import _leaves, _unflatten
 from lighthouse2_tpu_torch.diff.params import (
     displace_vertices, set_light_radiance, set_material_fields)
+from lighthouse2_tpu_torch.render import graphs
 from lighthouse2_tpu_torch.render.wavefront import (
     AccumState, _check_config, ensure_regen_state, trace_paths,
     trace_paths_regen)
@@ -66,21 +70,13 @@ def make_loss(target, view, config: RenderConfig, insert, scene: DeviceScene,
     return loss
 
 
-def regen_value_and_grad(scene: DeviceScene, view: ViewPyramid,
-                         state: AccumState, config: RenderConfig, target,
-                         params: dict):
-    """One fwd+bwd pass of the regen executor: the training step of the
-    headline (bench.py:82-112 fb_pass, regen branch).
-
-    params: "color" [M,3] and optionally "light" [LT,3] and "offset"
-    [T,3,3], inserted with set_material_fields, set_light_radiance and
-    displace_vertices in that order. The loss is
-    mean((acc_delta[:, :3] / max(count_px, 1) - target)^2) over this pass's
-    samples. Returns (loss, grads {name: tensor}, new AccumState); the state
-    is detached, so the next step neither backpropagates into this step's
-    graph nor keeps it alive."""
-    _check_config(config)
-    state = ensure_regen_state(view, state, config)
+def fb_pass(scene: DeviceScene, view: ViewPyramid, state: AccumState,
+            config: RenderConfig, target, params: dict):
+    """The body of the headline's fwd+bwd step (bench.py:82-112 fb_pass,
+    regen branch), eagerly, on a state that holds its pool: the insert, the
+    pass, the loss and torch.autograd.grad. Returns regen_value_and_grad's
+    (loss, grads, new AccumState), where JAX's fb_pass returns (state,
+    grads)."""
     p = {k: v.detach().requires_grad_() for k, v in params.items()}
     s = set_material_fields(scene, color=p["color"])
     if "light" in p:
@@ -100,6 +96,33 @@ def regen_value_and_grad(scene: DeviceScene, view: ViewPyramid,
         pixel_count=state.pixel_count + count_px,
         pool=({k: v.detach() for k, v in paths.items()}, depth, sample_k))
     return loss.detach(), grads, new_state
+
+
+_step_graph = graphs.CapturedCall("regen_value_and_grad", fb_pass)
+
+
+def regen_value_and_grad(scene: DeviceScene, view: ViewPyramid,
+                         state: AccumState, config: RenderConfig, target,
+                         params: dict):
+    """One fwd+bwd pass of the regen executor: the training step of the
+    headline (bench.py:82-112 fb_pass, regen branch), compiled as JAX's
+    jax.jit of it: on a card the whole step (parameter leaves, insert,
+    pass, loss and backward) is captured as a CUDA graph at the second call
+    with the same key and replayed from then on (render/graphs.py).
+
+    params: "color" [M,3] and optionally "light" [LT,3] and "offset"
+    [T,3,3], inserted with set_material_fields, set_light_radiance and
+    displace_vertices in that order. The loss is
+    mean((acc_delta[:, :3] / max(count_px, 1) - target)^2) over this pass's
+    samples. Returns (loss, grads {name: tensor}, new AccumState); the state
+    is detached, so the next step neither backpropagates into this step's
+    graph nor keeps it alive."""
+    _check_config(config)
+    state = ensure_regen_state(view, state, config)
+    # fb_pass makes its own leaves: detached here, an optimizer's leaves
+    # that require grad do not keep the step eager
+    params = {k: v.detach() for k, v in params.items()}
+    return _step_graph(scene, view, state, config, target, params)
 
 
 def _to_numpy(x):

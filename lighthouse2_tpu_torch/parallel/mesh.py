@@ -284,7 +284,8 @@ def render_image_sharded(scene, view, config: RenderConfig, mesh: Mesh,
     """One sharded pass from scratch -> the linear image [W*H, 3]."""
     state, _ = render_pass_sharded(
         scene, view, AccumState.make(config, mesh.device), config, mesh, axis)
-    return state.accumulator[:, :3] / float(max(state.sample_count, 1))
+    return state.accumulator[:, :3] / torch.clamp(state.sample_count,
+                                                  min=1).to(torch.float32)
 
 
 def train_step_sharded(scene, view, target, config: RenderConfig, mesh: Mesh,

@@ -227,7 +227,7 @@ def _light_ratio_chain(lverts, s, pdf_rev_top, pdf_rev_top1, t, max_eye,
 
 
 def trace_paths_bdpt(scene, view: ViewPyramid, config: RenderConfig,
-                     sample_base: int, cam_seed: int):
+                     sample_base, cam_seed):
     """One full BDPT wavefront. Returns (acc_delta [W*H,4], cam_seed',
     stats); stats hold int32 device tensors with JAX's keys."""
     bsdf_mod = bsdf_disney if config.bsdf == "disney" else bsdf_lambert

@@ -55,6 +55,7 @@ class WavefrontCore(RenderCore):
     def __init__(self, config: RenderConfig):
         super().__init__(config)
         self.state = None
+        self._samples = 0
 
     def on_target_changed(self):
         self.state = None
@@ -66,8 +67,12 @@ class WavefrontCore(RenderCore):
         if self.state is None or not converge:
             # Convergence::Restart
             self.state = AccumState.make(self.config, device_scene.device)
+            self._samples = 0
         t0 = time.perf_counter()
         self.state, stats = self._pass(device_scene, view)
+        # the host's copy of state.sample_count (a device scalar), so that
+        # the spp statistic reads nothing back
+        self._samples += self.config.spp_per_pass
         _sync(device_scene.device)
         wall = time.perf_counter() - t0
         ext = int(stats["total_extension"])
@@ -79,7 +84,7 @@ class WavefrontCore(RenderCore):
             pc = self.state.pixel_count
             spp_stat = {"spp": pc.mean().item(), "spp_min": pc.min().item()}
         else:
-            spp_stat = {"spp": int(self.state.sample_count)}
+            spp_stat = {"spp": self._samples}
         self.stats = {
             "render_time": wall,
             "primary_rays": int(stats["primary_rays"]),

@@ -33,11 +33,19 @@ launches no kernel: their outputs ((t, prim, u, v) and occ, each [N]) are
 small and saved.
 
 Differences from the JAX package:
-  - a Python bounce loop instead of jit / lax.scan / lax.cond, and no jit:
-    render_pass_jit, _render_pass_regen_jit and the stages run eagerly
-    (the same code as their unjitted counterparts); remat recomputes
+  - a Python bounce loop instead of lax.scan / lax.cond; remat recomputes
     refine + shade only, where jax.checkpoint wraps the whole bounce
     including traversal;
+  - jax.jit's counterpart is a CUDA graph (render/graphs.py): on a card,
+    render_pass_unrolled and _render_pass_regen_jit (so render_pass_regen,
+    render_pass_auto and the cores) are captured at the second call with
+    the same key and replayed from then on, the state not donated;
+    trace_paths_unrolled and trace_paths_regen stay their eager bodies.
+    render_pass_jit (one bool read back a bounce, which a graph cannot
+    hold) and the stages run eagerly;
+  - AccumState's sample_count (int32) and cam_seed (int64 carrying the
+    uint32) are 0-d device tensors, as JAX's scalars, so a pass advances
+    them on the device;
   - trace_paths's all-lanes-dead skip (JAX's lax.cond) costs one host
     readback per bounce (the `any` of the alive mask), so render_pass and
     render_pass_jit read one bool back a bounce. The staged, unrolled and
@@ -93,7 +101,7 @@ from lighthouse2_tpu_torch.core.geometry import (
     safe_origin)
 from lighthouse2_tpu_torch.core.types import RenderConfig, ViewPyramid
 from lighthouse2_tpu_torch.device import resolve_device
-from lighthouse2_tpu_torch.render import bsdf_disney, bsdf_lambert
+from lighthouse2_tpu_torch.render import bsdf_disney, bsdf_lambert, graphs
 from lighthouse2_tpu_torch.render.fetch import reattach_rows
 from lighthouse2_tpu_torch.render.kernels.cluster import (
     bake_material_rows, prepare_pay_tiles, ray_sort_perm, trace_cluster_bvh)
@@ -115,18 +123,23 @@ class AccumState:
     regen executor's per-pixel completed-sample counts and its persistent
     path pool (paths dict, per-lane depth, per-lane sample index)."""
     accumulator: torch.Tensor   # [W*H, 4]; .w accumulates primary depth
-    sample_count: int           # samplesTaken
-    cam_seed: int               # uint32 camRNGseed
+    sample_count: torch.Tensor  # int32 0-d (samplesTaken)
+    cam_seed: torch.Tensor      # int64 0-d carrying the uint32 camRNGseed
     pixel_count: torch.Tensor | None = None   # [W*H] f32 completed samples
     pool: tuple | None = None
 
     @staticmethod
     def make(config: RenderConfig, device=None) -> "AccumState":
+        """A restart: zero accumulator and samples, the restart seed; both
+        seeds are device scalars, as JAX's int32 / uint32, so that a pass
+        advances them on the device and reads nothing back."""
+        dev = resolve_device(device)
         return AccumState(
             accumulator=torch.zeros((config.width * config.height, 4),
-                                    dtype=torch.float32,
-                                    device=resolve_device(device)),
-            sample_count=0, cam_seed=rng_mod.CAM_RNG_SEED)
+                                    dtype=torch.float32, device=dev),
+            sample_count=torch.zeros((), dtype=torch.int32, device=dev),
+            cam_seed=torch.full((), rng_mod.CAM_RNG_SEED & rng_mod.M32,
+                                dtype=torch.int64, device=dev))
 
 
 def _clamp_intensity(contrib, clamp_value):
@@ -177,8 +190,10 @@ def untile_image(x, config: RenderConfig):
 def generate_eye_rays(view: ViewPyramid, config: RenderConfig, sample_base,
                       path_idx=None, sample_idx=None):
     """Primary rays (optix/.optix.cu:66-99 generateEyeRay): pixel jitter,
-    9-bladed lens DOF, optional barrel distortion. `sample_idx` (int64
-    carrying uint32, one per lane) overrides the per-lane sample numbers."""
+    9-bladed lens DOF, optional barrel distortion. `sample_base` is an int
+    or an integer device scalar (AccumState.sample_count); `sample_idx`
+    (int64 carrying uint32, one per lane) overrides the per-lane sample
+    numbers."""
     w, h = config.width, config.height
     dev = view.pos.device
     if path_idx is None:
@@ -393,8 +408,12 @@ def bounce_step(scene, view, config: RenderConfig, paths, acc, cam_seed, li,
     args = (scene, view, config, paths, acc, cam_seed, li, tuple(hit),
             payload)
     if config.remat:
+        # the bounce draws no torch random numbers (its RNG is counter-
+        # based), so the CUDA RNG state is neither saved nor restored: a
+        # CUDA graph cannot capture that
         paths, acc, cam_seed, shadow = checkpoint(_shade_stage, *args,
-                                                  use_reentrant=False)
+                                                  use_reentrant=False,
+                                                  preserve_rng_state=False)
     else:
         paths, acc, cam_seed, shadow = _shade_stage(*args)
     if occluded_fn is None:
@@ -694,11 +713,12 @@ def _finish_pass(config: RenderConfig, paths, acc, stats, path_idx, cam_seed):
     return unt(acc).sum(0), cam_seed, stats
 
 
-def trace_paths(scene, view, config: RenderConfig, path_idx, sample_base: int,
-                cam_seed: int, *, intersect_fn=None, occluded_fn=None):
+def trace_paths(scene, view, config: RenderConfig, path_idx, sample_base,
+                cam_seed, *, intersect_fn=None, occluded_fn=None):
     """The classic executor: one wavefront of W*H*spp fresh paths traced for
     max_path_length bounces. Returns (acc_delta [W*H,4], cam_seed', stats);
-    stats hold device tensors.
+    stats hold device tensors. sample_base and cam_seed are ints or device
+    scalars (AccumState's); cam_seed' is cam_seed's kind.
 
     `path_idx` (int64 [n]) traces only those global path indices, a shard
     of [0, W*H*spp) (the parallel layer): their results are scatter-added
@@ -850,9 +870,9 @@ def render_pass(scene: DeviceScene, view: ViewPyramid, state: AccumState,
 
 
 def render_pass_jit(scene, view, state: AccumState, config: RenderConfig):
-    """render_pass (JAX :751 jit-compiles it with config static). PyTorch
-    runs eagerly, so this is the same code; capturing the pass in a CUDA
-    graph, the port's answer to launch overhead, is later work."""
+    """render_pass (JAX :751 jit-compiles it with config static), eagerly:
+    its all-dead skip reads one bool back a bounce, which a CUDA graph
+    cannot hold (render_pass_unrolled is the captured classic pass)."""
     return render_pass(scene, view, state, config)
 
 
@@ -974,19 +994,29 @@ def trace_paths_unrolled(scene, view, config: RenderConfig, state: AccumState):
                         None, cam_seed)
 
 
-def render_pass_unrolled(scene, view, state: AccumState, config: RenderConfig):
-    """One pass through trace_paths_unrolled (JAX :891 jits it and donates
-    the state; here eager). Returns (new AccumState, stats)."""
-    _check_config(config)
+def _unrolled_pass(scene, view, state: AccumState, config: RenderConfig):
+    """render_pass_unrolled's body, eagerly: trace_paths_unrolled and the
+    new state."""
     acc_delta, cam_seed, stats = trace_paths_unrolled(scene, view, config,
                                                       state)
     return _next_state(state, config, acc_delta, cam_seed), stats
 
 
-def _render_pass_regen_jit(scene, view, state: AccumState,
-                           config: RenderConfig):
-    """The regen pass on a state that holds its pool (JAX :1010 jits it and
-    donates the state; here eager)."""
+_unrolled_graph = graphs.CapturedCall("render_pass_unrolled", _unrolled_pass)
+
+
+def render_pass_unrolled(scene, view, state: AccumState, config: RenderConfig):
+    """One pass through trace_paths_unrolled, compiled as JAX :891 compiles
+    it: on a card the pass is captured as a CUDA graph at the second call
+    with the same key and replayed from then on (render/graphs.py); the
+    state is not donated. Returns (new AccumState, stats)."""
+    _check_config(config)
+    return _unrolled_graph(scene, view, state, config)
+
+
+def _regen_pass(scene, view, state: AccumState, config: RenderConfig):
+    """_render_pass_regen_jit's body, eagerly: trace_paths_regen and the new
+    state."""
     acc_delta, count_px, cam_seed, pool, stats = trace_paths_regen(
         scene, view, config, state)
     return AccumState(
@@ -995,6 +1025,18 @@ def _render_pass_regen_jit(scene, view, state: AccumState,
         cam_seed=cam_seed,
         pixel_count=state.pixel_count + count_px,
         pool=pool), stats
+
+
+_regen_graph = graphs.CapturedCall("_render_pass_regen_jit", _regen_pass)
+
+
+def _render_pass_regen_jit(scene, view, state: AccumState,
+                           config: RenderConfig):
+    """The regen pass on a state that holds its pool, compiled as JAX :1010
+    compiles it: on a card a CUDA graph captured at the second call with the
+    same key and replayed from then on (render/graphs.py); the state is not
+    donated."""
+    return _regen_graph(scene, view, state, config)
 
 
 def render_pass_regen(scene, view, state: AccumState, config: RenderConfig):
@@ -1024,5 +1066,5 @@ def finalize(state: AccumState):
     if state.pixel_count is not None:
         cnt = torch.clamp(state.pixel_count, min=1.0)
         return state.accumulator[:, :3] / cnt[:, None]
-    spp = float(max(state.sample_count, 1))
+    spp = torch.clamp(state.sample_count, min=1).to(torch.float32)
     return state.accumulator[:, :3] / spp

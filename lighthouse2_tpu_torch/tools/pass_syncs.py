@@ -14,9 +14,12 @@ it, else render_pass, which ran the regen executor under path_regen
 before the executors had names of their own): 2 warm-up passes, PASSES
 timed passes each closed by a synchronize, the host synchronisations of
 one more pass (torch.cuda.set_sync_debug_mode("warn")) and the device ms
-of one more under torch.profiler (device activity only). Give the roots
-in turns (parent, change, change, parent) to compare two commits. Prints
-one JSON line per root, with the card's name and power limit.
+of one more under torch.profiler (device activity only). In a checkout
+that captures the regen pass as a CUDA graph (render/graphs.py), the
+second warm-up pass captures it and every later pass replays the graph.
+Give the roots in turns (parent, change, change, parent) to compare two
+commits. Prints one JSON line per root, with the card's name and power
+limit.
 """
 from __future__ import annotations
 

@@ -10,7 +10,11 @@ signature, and the port's independence from JAX.
     the same names in the same order; the port's extra parameters come
     after them, with a default or keyword-only;
   - no .py file of the port, and not chip_smoke.py, imports jax, flax,
-    optax or lighthouse2_tpu (an ast scan, so nothing is imported).
+    optax or lighthouse2_tpu (an ast scan, so nothing is imported);
+  - the key under which render/graphs.py caches a captured pass (the
+    counterpart of jax.jit's cache): equal for calls whose tensors have
+    the same shapes, whatever their values; another for another shape,
+    dtype, config, baked scalar or entry point.
 The JAX side is read with ast and never imported; no JAX compile.
 """
 import ast
@@ -134,3 +138,121 @@ def test_port_imports_nothing_of_jax():
                 if m.split(".")[0] in BANNED:
                     bad.append(f"{path.relative_to(ROOT)}:{node.lineno} {m}")
     assert not bad, bad
+
+
+def test_graph_cache_key():
+    import dataclasses
+
+    from lighthouse2_tpu_torch.core.types import RenderConfig, ViewPyramid
+    from lighthouse2_tpu_torch.render.graphs import cache_key
+    from lighthouse2_tpu_torch.render.wavefront import AccumState
+
+    cfg = RenderConfig(width=8, height=8, max_path_length=2, path_regen=True)
+
+    def view(x):
+        v3 = torch.full((3,), x)
+        v0 = torch.tensor(x)
+        return ViewPyramid(v3, v3, v3, v3, v0, v0, v0, v0, v0)
+
+    def key(name="_render_pass_regen_jit", v=0.0, state=None, config=cfg,
+            extra=4):
+        state = state or AccumState.make(config, "cpu")
+        return cache_key(name, view(v), state, config, extra)
+
+    a = key()
+    assert a == key(v=1.5)                       # other values, same shapes
+    moved = AccumState.make(cfg, "cpu")
+    moved.cam_seed = moved.cam_seed + 7
+    assert a == key(state=moved)
+    assert hash(a) == hash(key(v=2.0))
+    wide = dataclasses.replace(cfg, width=16)
+    others = dict(
+        entry=key(name="render_pass_unrolled"),
+        config=key(config=dataclasses.replace(cfg, remat=True)),
+        shape=key(state=AccumState.make(wide, "cpu")),
+        dtype=key(state=dataclasses.replace(
+            AccumState.make(cfg, "cpu"),
+            sample_count=torch.zeros((), dtype=torch.int64))),
+        scalar=key(extra=5),
+        structure=key(state=dataclasses.replace(
+            AccumState.make(cfg, "cpu"),
+            pixel_count=torch.zeros(64))))
+    assert all(k != a for k in others.values()), [
+        n for n, k in others.items() if k == a]
+
+
+def test_captured_call_bookkeeping():
+    """CapturedCall's copies into its static inputs and out of its pool,
+    with a stub in place of the CUDA graph (the CPU cannot run one): the
+    stub's replay recomputes the call on the static inputs into the
+    captured outputs' storage, as a graph's replay writes its pool."""
+    from lighthouse2_tpu_torch.render import graphs
+
+    def fn(scene, params):
+        y = scene["verts"] * params["color"].sum() + params["offset"]
+        return y, {"y": y, "total": params["offset"].sum()}
+
+    def tensors_of(x):
+        ts = []
+        graphs._walk(x, ts)
+        return ts
+
+    scene = {"verts": torch.arange(6.0).reshape(2, 3)}
+    leaf = torch.ones(3, requires_grad=True)
+    offset = torch.zeros(2, 3)
+    params = lambda: {"color": leaf.detach(), "offset": offset}
+
+    cc = graphs.CapturedCall("f", fn)
+    args = (scene, params())
+    cc.entry = graphs._Entry(graphs.cache_key("f", *args))
+    static_args = cc._stage(args, tensors_of(args))
+    out = fn(*static_args)
+
+    class StubGraph:
+        def replay(self):
+            for o, n in zip(tensors_of(out), tensors_of(fn(*static_args))):
+                o.copy_(n)
+
+    cc.entry.graph, cc.entry.out = StubGraph(), out
+
+    def call(*a):
+        cc._load(tensors_of(a))
+        return cc._replay()
+
+    def check(got, *a):
+        want = fn(*a)
+        assert graphs._walk(got, []) == graphs._walk(want, [])
+        for g, w in zip(tensors_of(got), tensors_of(want)):
+            assert torch.equal(g, w)
+
+    # an untouched tensor already copied in is read in place, not copied
+    verts_static = cc.entry.static[0]
+    verts_static.fill_(-1.0)
+    r1 = call(scene, params())
+    assert torch.equal(verts_static, torch.full((2, 3), -1.0))
+    verts_static.copy_(scene["verts"])
+    r1 = call(scene, params())
+    check(r1, scene, params())
+    # results are the caller's: clones out of the pool, aliases kept
+    assert r1[0] is r1[1]["y"]
+    assert r1[0].data_ptr() != out[0].data_ptr()
+    kept = [t.clone() for t in tensors_of(r1)]
+
+    # an optimizer's in-place step on the leaf (same storage, a new
+    # version) is copied in
+    opt = torch.optim.SGD([leaf], lr=0.25)
+    leaf.grad = torch.tensor([1.0, 2.0, 3.0])
+    opt.step()
+    r2 = call(scene, params())
+    check(r2, scene, params())
+    assert not torch.equal(r2[0], kept[0])
+    # so are a scene tensor changed in place and a tensor at a new address
+    with torch.no_grad():
+        scene["verts"].mul_(2.0)
+    offset = torch.full((2, 3), 0.5)
+    r3 = call(scene, params())
+    check(r3, scene, params())
+    # a later replay leaves the results the caller holds as they were
+    for t, k in zip(tensors_of(r1), kept):
+        assert torch.equal(t, k)
+    assert cc.replays == 4
