@@ -92,8 +92,14 @@ def main(argv=None) -> int:
     passes = max(1, args.spp // args.spp_per_pass)
     for i in range(passes):
         stats = api.render(converge=i > 0)
+        # the pass's device time by stage (the stage marks), where the
+        # core reports it
+        stages = (f" (trace {stats['trace_time'] * 1e3:.1f}, shadow trace "
+                  f"{stats['shadow_trace_time'] * 1e3:.1f}, shade "
+                  f"{stats['shade_time'] * 1e3:.1f} ms)"
+                  if "trace_time" in stats else "")
         print(f"pass {i + 1}/{passes}: {stats['total_rays']} rays, "
-              f"{stats['render_time'] * 1e3:.1f} ms, "
+              f"{stats['render_time'] * 1e3:.1f} ms{stages}, "
               f"{stats['mrays_per_s']:.2f} Mrays/s, spp={stats['spp']}",
               file=sys.stderr)
 

@@ -382,3 +382,61 @@ extern "C" int lh2_trace_occluded(const float* o, const float* d,
   }
   return static_cast<int>(cudaGetLastError());
 }
+
+// Stage marks (utils/telemetry.py). One single-thread kernel per stage
+// boundary of a pass, launched on the pass's stream, so that a CUDA graph
+// captures it with the pass and every replay runs it: a host profiler range
+// never reaches the kernels of a replay, a mark is one of them. Each kernel
+// is named after the stage it opens, so a profiler's device trace shows the
+// stages, and each reads %globaltimer (ns) and adds the time since the
+// previous mark to the stage that mark opened. `buf` is int64: the open
+// stage (-1: none), the last mark's time, the passes closed, then each
+// stage's nanoseconds (utils/telemetry.py allocates it, so the number of
+// stages lives there alone). lh2_mark_end (stage -1) opens nothing: the
+// time from one pass's end to the next pass's first mark (the replay's
+// copies in and out, the host's gap) goes to no stage.
+__device__ __forceinline__ void stage_mark(long long* buf, int stage) {
+  unsigned long long now;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
+  const long long open = buf[0];
+  if (open >= 0) buf[3 + open] += static_cast<long long>(now) - buf[1];
+  if (stage < 0) buf[2] += 1;
+  buf[1] = static_cast<long long>(now);
+  buf[0] = stage;
+}
+
+#define LH2_MARK(name, stage) \
+  __global__ void lh2_mark_##name(long long* buf) { stage_mark(buf, stage); }
+LH2_MARK(generate, 0)
+LH2_MARK(trace, 1)
+LH2_MARK(refine, 2)
+LH2_MARK(shade, 3)
+LH2_MARK(occlude, 4)
+LH2_MARK(apply, 5)
+LH2_MARK(finish, 6)
+LH2_MARK(end, -1)
+
+// The stages in the order lh2_mark numbers them; the loader holds
+// utils/telemetry.py STAGES to it.
+extern "C" const char* lh2_mark_stages() {
+  return "generate trace refine shade occlude apply finish";
+}
+
+// Launches the mark of `stage` (0.., or -1 for the end) on `stream`, one
+// thread; returns cudaGetLastError(), or cudaErrorInvalidValue for a stage
+// out of range.
+extern "C" int lh2_mark(int stage, long long* buf, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (stage) {
+    case 0: lh2_mark_generate<<<1, 1, 0, s>>>(buf); break;
+    case 1: lh2_mark_trace<<<1, 1, 0, s>>>(buf); break;
+    case 2: lh2_mark_refine<<<1, 1, 0, s>>>(buf); break;
+    case 3: lh2_mark_shade<<<1, 1, 0, s>>>(buf); break;
+    case 4: lh2_mark_occlude<<<1, 1, 0, s>>>(buf); break;
+    case 5: lh2_mark_apply<<<1, 1, 0, s>>>(buf); break;
+    case 6: lh2_mark_finish<<<1, 1, 0, s>>>(buf); break;
+    case -1: lh2_mark_end<<<1, 1, 0, s>>>(buf); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

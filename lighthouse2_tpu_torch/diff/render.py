@@ -37,6 +37,7 @@ from lighthouse2_tpu_torch.render.wavefront import (
     AccumState, _check_config, ensure_regen_state, trace_paths,
     trace_paths_regen)
 from lighthouse2_tpu_torch.scene.device_scene import DeviceScene
+from lighthouse2_tpu_torch.utils import telemetry
 
 
 def render_image(scene: DeviceScene, view: ViewPyramid, config: RenderConfig,
@@ -47,7 +48,9 @@ def render_image(scene: DeviceScene, view: ViewPyramid, config: RenderConfig,
     _check_config(config)
     acc, _, _ = trace_paths(scene, view, config, None, sample_base,
                             rng_mod.CAM_RNG_SEED)
-    return acc[:, :3] / config.spp_per_pass
+    img = acc[:, :3] / config.spp_per_pass
+    telemetry.mark("end", view.pos.device)
+    return img
 
 
 def render_image_jit(scene: DeviceScene, view: ViewPyramid,
@@ -87,6 +90,8 @@ def fb_pass(scene: DeviceScene, view: ViewPyramid, state: AccumState,
         s, view, config, state)
     img = acc_delta[:, :3] / torch.clamp(count_px, min=1.0)[:, None]
     loss = ((img - target) ** 2).mean()
+    # the forward pass ends here; the backward runs in no stage
+    telemetry.mark("end", view.pos.device)
     grads = dict(zip(p, torch.autograd.grad(loss, list(p.values()))))
     paths, depth, sample_k = pool
     new_state = AccumState(

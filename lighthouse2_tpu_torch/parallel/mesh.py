@@ -44,6 +44,7 @@ from lighthouse2_tpu_torch.core.types import RenderConfig
 from lighthouse2_tpu_torch.device import resolve_device
 from lighthouse2_tpu_torch.render.wavefront import (
     AccumState, _check_config, trace_paths)
+from lighthouse2_tpu_torch.utils import telemetry
 
 
 @dataclasses.dataclass
@@ -260,6 +261,7 @@ def local_pass(scene, view, state: AccumState, config: RenderConfig,
     acc, cam_seed, stats = trace_paths(scene, view, config, path_idx,
                                        state.sample_count, state.cam_seed)
     flat = torch.cat([stats[k].reshape(-1).to(dev) for k in _STAT_KEYS])
+    telemetry.mark("end", dev)
     return acc, flat, cam_seed
 
 

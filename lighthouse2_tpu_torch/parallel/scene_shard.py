@@ -103,6 +103,7 @@ from lighthouse2_tpu_torch.render.kernels.trace import (
 from lighthouse2_tpu_torch.render.shading import PAY_ROWS, material_pack
 from lighthouse2_tpu_torch.render.wavefront import (
     AccumState, _check_config, _pick_intersector, trace_paths)
+from lighthouse2_tpu_torch.utils import telemetry
 
 # the key of a ray that no shard hit: BIG_T's bits over the largest id
 _MISS_LOW = 0x7FFFFFFF
@@ -434,10 +435,12 @@ def render_pass_scene_sharded(scene, view, state: AccumState,
     acc = sum_over(acc, mesh, "rays")
     flat = sum_over(torch.cat([stats[k].reshape(-1).to(dev)
                                for k in _STAT_KEYS]), mesh, "rays")
-    return AccumState(
+    state = AccumState(
         accumulator=state.accumulator + acc,
         sample_count=state.sample_count + config.spp_per_pass,
-        cam_seed=cam_seed), unflatten_stats(flat, config.max_path_length)
+        cam_seed=cam_seed)
+    telemetry.mark("end", dev)
+    return state, unflatten_stats(flat, config.max_path_length)
 
 
 def train_step_scene_sharded(scene, view, target, config: RenderConfig,

@@ -24,7 +24,11 @@ WavefrontCore and FilteredWavefrontCore run render_pass_auto and BDPTCore
 render_pass_bdpt_jit, as JAX's do;
 FilteredWavefrontCore's stats add "pass_time" (render_pass_auto) and
 "filter_time" (SVGF + TAA + unsharpen), each closed by a synchronize, and
-the per-bounce ray counts as WavefrontCore's do; FilteredWavefrontCore has
+the per-bounce ray counts as WavefrontCore's do; WavefrontCore's and
+FilteredWavefrontCore's stats add the pass's device seconds by stage
+from the stage marks (utils/telemetry.py), named after the reference's
+CoreStats: "trace_time", "shadow_trace_time", "shade_time" and
+"stage_ms" (zeros on the CPU, where no mark runs); FilteredWavefrontCore has
 no `state` attribute (JAX's is never set), so its on_target_changed drops
 the filter, TAA, previous-view and frame-index state; BDPTCore's stats are
 WavefrontCore's keys, the per-bounce counts included (the totals in slot
@@ -43,6 +47,7 @@ from lighthouse2_tpu_torch.core.types import RenderConfig
 from lighthouse2_tpu_torch.render.cores.base import RenderCore, register_core
 from lighthouse2_tpu_torch.render.wavefront import (
     AccumState, finalize, render_pass_auto)
+from lighthouse2_tpu_torch.utils import telemetry
 
 
 def _sync(device: torch.device):
@@ -68,6 +73,7 @@ class WavefrontCore(RenderCore):
             # Convergence::Restart
             self.state = AccumState.make(self.config, device_scene.device)
             self._samples = 0
+        marked = telemetry.stage_seconds(device_scene.device)
         t0 = time.perf_counter()
         self.state, stats = self._pass(device_scene, view)
         # the host's copy of state.sample_count (a device scalar), so that
@@ -95,6 +101,8 @@ class WavefrontCore(RenderCore):
             **spp_stat,
             "extension_per_bounce": stats["extension_rays"].cpu().numpy(),
             "shadow_per_bounce": stats["shadow_rays"].cpu().numpy(),
+            **telemetry.stage_stats(
+                marked, telemetry.stage_seconds(device_scene.device)),
         }
         return self.stats
 
@@ -138,12 +146,14 @@ class FilteredWavefrontCore(RenderCore):
         if self.config.taa_enabled:
             # 4-phase Halton subpixel jitter (rendercore.cpp:734-743)
             view, _ = jittered_view(view, self.frame_idx, w, h)
+        marked = telemetry.stage_seconds(dev)
         t0 = time.perf_counter()
         state = AccumState.make(self.config, dev)   # fresh every frame
         state, stats = render_pass_auto(device_scene, view, state,
                                         self.config)
         _sync(dev)
         t1 = time.perf_counter()
+        stages = telemetry.stage_stats(marked, telemetry.stage_seconds(dev))
         aux = stats["filter_aux"]
         img = lambda x: x.reshape(h, w, *x.shape[1:])
         spp = max(1, self.config.spp_per_pass)
@@ -177,6 +187,7 @@ class FilteredWavefrontCore(RenderCore):
             "spp": spp,
             "extension_per_bounce": stats["extension_rays"].cpu().numpy(),
             "shadow_per_bounce": stats["shadow_rays"].cpu().numpy(),
+            **stages,
         }
         return self.stats
 

@@ -34,7 +34,11 @@ does the same with a CUDA graph (torch.cuda.graphs) for arguments on a card:
     three others) move only where a wrapper launches its kernel: in the
     eager call and in the capture, which records the launches into the
     graph. A replay runs the graph's kernels without the wrappers and
-    moves no counter; the profiler counts its kernels by name.
+    moves no counter; the profiler counts its kernels by name;
+  - the capture runs under two host spans (utils/telemetry.py) named after
+    the entry point, <name>.capture (recording the call) and
+    <name>.instantiate (ending the capture), which fill the entry's
+    capture_seconds and instantiate_seconds.
 
 Arguments on the CPU run eagerly, every call, as every entry point did
 before. A call in which grad mode is on and an argument requires grad also
@@ -46,9 +50,10 @@ from __future__ import annotations
 
 import copy
 import dataclasses
-import time
 
 import torch
+
+from lighthouse2_tpu_torch.utils import telemetry
 
 
 class _Entry:
@@ -61,8 +66,8 @@ class _Entry:
         self.static = None         # tensors the graph reads, in walk order
         self.sources = None        # (tensor, version) last copied into each
         self.out = None            # the captured call's result, in the pool
-        self.capture_seconds = None       # recording the call
-        self.instantiate_seconds = None   # ending the capture, instantiating
+        self.capture_seconds = None       # the span <name>.capture
+        self.instantiate_seconds = None   # the span <name>.instantiate
 
     def free(self):
         self.out = self.static = self.sources = None
@@ -189,16 +194,23 @@ class CapturedCall:
         e = self.entry
         static_args = self._stage(args, tensors)
         g = torch.cuda.CUDAGraph()
+        # the mark buffer is in place before the graph bakes in its address
+        telemetry.stage_buffer(dev)
+        capture = torch.cuda.graph(g, stream=self._side_stream(dev))
         try:
-            with torch.cuda.graph(g, stream=self._side_stream(dev)):
-                t0 = time.perf_counter()
-                out = self.fn(*static_args)
-                t1 = time.perf_counter()
-            e.instantiate_seconds = time.perf_counter() - t1
-            e.capture_seconds = t1 - t0
+            capture.__enter__()
+            try:
+                with telemetry.span(f"{self.name}.capture") as rec:
+                    out = self.fn(*static_args)
+            except BaseException as exc:
+                capture.__exit__(type(exc), exc, exc.__traceback__)
+                raise
+            with telemetry.span(f"{self.name}.instantiate") as inst:
+                capture.__exit__(None, None, None)
         except BaseException:
             self.clear()
             raise
+        e.capture_seconds, e.instantiate_seconds = rec.seconds, inst.seconds
         e.graph, e.out = g, out
 
     def _load(self, tensors):

@@ -16,7 +16,9 @@ build/lighthouse2_tpu_torch/trace_<hash>.so (the hash covers the source and
 the flags) and loaded with ctypes. Each wrapper takes the plain version for
 tensors on the CPU and launches the kernel for tensors on a CUDA device; it
 never falls back from one to the other. `trace_closest.launches` and
-`trace_occluded.launches` count kernel launches.
+`trace_occluded.launches` count kernel launches. The same library holds the
+stage marks (lh2_mark_*): launch_mark, installed here as utils/telemetry.py's
+launcher, launches them.
 """
 from __future__ import annotations
 
@@ -31,6 +33,7 @@ import torch
 from lighthouse2_tpu_torch.bvh.traverse import DeviceBVH, check_depth
 from lighthouse2_tpu_torch.bvh.wide import wide_intersect, wide_occluded
 from lighthouse2_tpu_torch.core.geometry import per_lane
+from lighthouse2_tpu_torch.utils import telemetry
 
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
@@ -86,6 +89,13 @@ def _load():
         lib.lh2_trace_closest.restype = i
         lib.lh2_trace_occluded.argtypes = [p] * 5 + [i] * 2 + [p] * 3
         lib.lh2_trace_occluded.restype = i
+        lib.lh2_mark.argtypes = [i, p, p]
+        lib.lh2_mark.restype = i
+        lib.lh2_mark_stages.restype = ctypes.c_char_p
+        if lib.lh2_mark_stages().decode().split() != list(telemetry.STAGES):
+            raise RuntimeError("csrc/trace.cu numbers its stage marks "
+                               f"{lib.lh2_mark_stages().decode()!r}, "
+                               f"utils/telemetry.py {telemetry.STAGES}")
         _lib = lib
     return _lib
 
@@ -184,3 +194,20 @@ def trace_occluded(o, d, tmax, bvh: DeviceBVH, stats: bool = False):
 
 trace_closest.launches = 0
 trace_occluded.launches = 0
+
+
+def launch_mark(stage: str, device):
+    """utils/telemetry.py's launcher: lh2_mark_<stage> on the current stream
+    of a CUDA device, adding into the device's mark buffer; nothing on any
+    other device."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return
+    buf = telemetry.stage_buffer(device)
+    index = -1 if stage == "end" else telemetry.STAGES.index(stage)
+    _check_rc(_load().lh2_mark(index, buf.data_ptr(),
+                               torch.cuda.current_stream(device).cuda_stream),
+              "stage mark")
+
+
+telemetry.launcher = launch_mark

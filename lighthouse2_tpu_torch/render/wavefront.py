@@ -32,6 +32,18 @@ Both trace launches stay outside the recomputed region and the backward
 launches no kernel: their outputs ((t, prim, u, v) and occ, each [N]) are
 small and saved.
 
+Stage marks (utils/telemetry.py): the bounce loop that trace_paths,
+trace_paths_unrolled and trace_paths_regen share opens each stage of a
+bounce with a device mark, which a CUDA graph captures with the pass:
+generate (regeneration, or the eye rays and the live-lane count), trace
+(with the cluster path's ray sort and payload fetch; the payload pack
+before the loop is opened by one more trace mark), refine, shade, occlude,
+apply (with the bounce's counters), then finish (untile, accumulate,
+stats) after the loop, and end where the executor's pass ends (its new
+state built). The recompute of config.remat in the backward launches no
+mark. render_pass_staged places none: its stages run under host spans of
+their names.
+
 Differences from the JAX package:
   - a Python bounce loop instead of lax.scan / lax.cond; remat recomputes
     refine + shade only, where jax.checkpoint wraps the whole bounce
@@ -87,7 +99,6 @@ Differences from the JAX package:
 from __future__ import annotations
 
 import dataclasses
-import functools
 import math
 
 import torch
@@ -113,6 +124,7 @@ from lighthouse2_tpu_torch.render.shading import (
     PAY_V0, get_shading_data, material_pack, shading_from_payload)
 from lighthouse2_tpu_torch.render.sky import sample_skydome, sky_pdf
 from lighthouse2_tpu_torch.scene.device_scene import DeviceScene
+from lighthouse2_tpu_torch.utils import telemetry
 
 EPSILON = 1e-4   # pathtracer epsilon for pdf cutoff
 
@@ -290,12 +302,17 @@ def _pick_intersector(scene: DeviceScene, config: RenderConfig) -> str:
     return "brute" if scene.bvh is None else "bvh"
 
 
-def prepare_cluster_pay(scene: DeviceScene, config: RenderConfig):
+def prepare_cluster_pay(scene: DeviceScene, config: RenderConfig,
+                        mark=None):
     """The payload pack of the cluster path (render/kernels/cluster.py
     prepare_pay_tiles), its material rows baked from the live materials;
-    None on the other paths. Built once a pass and handed to every bounce."""
+    None on the other paths. Built once a pass and handed to every bounce.
+    `mark`, a device, opens the pack with a trace mark there (the
+    executors' pack before their bounce loop)."""
     if _pick_intersector(scene, config) != "cluster":
         return None
+    if mark is not None:
+        telemetry.mark("trace", mark)
     paym = bake_material_rows(scene.cbvh,
                               material_pack(scene.materials).detach())
     return prepare_pay_tiles(scene.cbvh, paym)
@@ -378,13 +395,31 @@ def _intersect(scene: DeviceScene, o, d, alive, config: RenderConfig,
                      reattach=not config.scene_sharded), payload)
 
 
-def _shade_stage(scene, view, config, paths, acc, cam_seed, li, hit, payload):
-    """refine + shade: the part of a bounce that remat recomputes."""
+def _shade_stage(scene, view, config, paths, acc, cam_seed, li, hit, payload,
+                 marks=True):
+    """refine + shade: the part of a bounce that remat recomputes; with
+    `marks` each opened by its stage mark."""
+    dev = paths["origin"].device
+    if marks:
+        telemetry.mark("refine", dev)
     t, prim, u, v = _refine(scene, paths["origin"], paths["dir"], *hit,
                             payload=payload,
                             reattach=not config.scene_sharded)
+    if marks:
+        telemetry.mark("shade", dev)
     return shade_bounce(scene, view, config, paths, acc, cam_seed, li,
                         t, prim, u, v, payload=payload)
+
+
+def _once(fn):
+    """fn with marks on its first call only: a checkpoint's recompute in the
+    backward calls it again with the same arguments."""
+    first = [True]
+
+    def run(*args):
+        marks, first[0] = first[0], False
+        return fn(*args, marks=marks)
+    return run
 
 
 def bounce_step(scene, view, config: RenderConfig, paths, acc, cam_seed, li,
@@ -398,7 +433,10 @@ def bounce_step(scene, view, config: RenderConfig, paths, acc, cam_seed, li,
     trace: the traversal's winner and its payload rows [PAY_ROWS, N] (or
     None); occluded_fn(o, d, tmax) -> bool [N] replaces the shadow trace.
     The payload goes through the checkpoint with the hit. pay_tiles and
-    sort_key go to the cluster path's trace (_trace)."""
+    sort_key go to the cluster path's trace (_trace). Opens the trace,
+    refine, shade, occlude and apply stages with their marks."""
+    dev = paths["origin"].device
+    telemetry.mark("trace", dev)
     if intersect_fn is None:
         *hit, payload = _trace(scene, paths["origin"], paths["dir"],
                                paths["alive"], config, pay_tiles, sort_key)
@@ -411,16 +449,18 @@ def bounce_step(scene, view, config: RenderConfig, paths, acc, cam_seed, li,
         # the bounce draws no torch random numbers (its RNG is counter-
         # based), so the CUDA RNG state is neither saved nor restored: a
         # CUDA graph cannot capture that
-        paths, acc, cam_seed, shadow = checkpoint(_shade_stage, *args,
+        paths, acc, cam_seed, shadow = checkpoint(_once(_shade_stage), *args,
                                                   use_reentrant=False,
                                                   preserve_rng_state=False)
     else:
         paths, acc, cam_seed, shadow = _shade_stage(*args)
+    telemetry.mark("occlude", dev)
     if occluded_fn is None:
         occ = _occluded(scene, shadow["o"], shadow["d"], shadow["tmax"],
                         config)
     else:
         occ = occluded_fn(shadow["o"], shadow["d"], shadow["tmax"])
+    telemetry.mark("apply", dev)
     acc, paths = apply_shadow(config, paths, acc, shadow, occ)
     return paths, acc, cam_seed, shadow["conn_ok"].sum()
 
@@ -737,12 +777,20 @@ def trace_paths(scene, view, config: RenderConfig, path_idx, sample_base,
     only, and stats["filter_aux"] holds the filter's per-pixel inputs: the
     indirect sum and the primary hit's albedo, normal, depth and world
     position (means over spp; misses keep albedo 1, normal 0, depth 0 and
-    world position 1e30)."""
+    world position 1e30).
+
+    Marks its stages up to finish; the caller closes the pass with the end
+    mark once its result is built."""
+    dev = view.pos.device
+    pay_tiles = (None if intersect_fn
+                 else prepare_cluster_pay(scene, config, mark=dev))
+    telemetry.mark("generate", dev)
     paths, acc = _add_buffers(
         generate_eye_rays(view, config, sample_base, path_idx), config)
     ext, conn = [], []
-    pay_tiles = None if intersect_fn else prepare_cluster_pay(scene, config)
     for li in range(config.max_path_length):
+        if li:   # bounce 0's generate mark opened the eye rays
+            telemetry.mark("generate", dev)
         n_alive = paths["alive"].sum()
         ext.append(n_alive)
         if not bool(n_alive):
@@ -754,6 +802,7 @@ def trace_paths(scene, view, config: RenderConfig, path_idx, sample_base,
             pay_tiles=pay_tiles, intersect_fn=intersect_fn,
             occluded_fn=occluded_fn, sort_key=_sort_key(config, li))
         conn.append(n_conn)
+    telemetry.mark("finish", dev)
     return _finish_pass(config, paths, acc,
                         dict(extension_rays=torch.stack(ext),
                              shadow_rays=torch.stack(conn)),
@@ -778,7 +827,8 @@ def trace_paths_regen(scene, view, config: RenderConfig, state: AccumState):
     persistent pool. Returns (acc_delta [W*H,4], count_delta [W*H],
     cam_seed', pool', stats); stats hold device tensors. Nothing is read
     back from the device: after regeneration every lane is alive, so each
-    bounce launches each trace kernel exactly once."""
+    bounce launches each trace kernel exactly once. Marks its stages up to
+    finish; the caller closes the pass with the end mark."""
     if config.filter_enabled:
         raise ValueError("the regen executor (path_regen) does not support "
                          "filter_enabled: it has no G-buffer stream; the "
@@ -792,8 +842,9 @@ def trace_paths_regen(scene, view, config: RenderConfig, state: AccumState):
     count = torch.zeros(n, dtype=torch.float32, device=dev)
     cam_seed = state.cam_seed
     ext, conn = [], []
-    pay_tiles = prepare_cluster_pay(scene, config)
+    pay_tiles = prepare_cluster_pay(scene, config, mark=dev)
     for _ in range(config.max_path_length):
+        telemetry.mark("generate", dev)
         # regenerate: a dead lane completed its previous sample (credited at
         # death, below) and starts its NEXT sample of the same pixel. The
         # sample index advances BEFORE generation; live lanes discard the
@@ -815,6 +866,7 @@ def trace_paths_regen(scene, view, config: RenderConfig, state: AccumState):
         count = count + (~paths["alive"]).to(torch.float32)
         conn.append(n_conn)
 
+    telemetry.mark("finish", dev)
     acc_px = untile_image(acc.reshape(spp, wh, -1), config).sum(0)
     count_px = untile_image(count.reshape(spp, wh, 1), config).sum(0)[:, 0]
     # "primary_rays" = samples completed this pass, as in JAX: lanes
@@ -866,7 +918,9 @@ def render_pass(scene: DeviceScene, view: ViewPyramid, state: AccumState,
     _check_config(config)
     acc_delta, cam_seed, stats = trace_paths(
         scene, view, config, None, state.sample_count, state.cam_seed)
-    return _next_state(state, config, acc_delta, cam_seed), stats
+    state = _next_state(state, config, acc_delta, cam_seed)
+    telemetry.mark("end", view.pos.device)
+    return state, stats
 
 
 def render_pass_jit(scene, view, state: AccumState, config: RenderConfig):
@@ -879,39 +933,30 @@ def render_pass_jit(scene, view, state: AccumState, config: RenderConfig):
 # ---------------------------------------------------------------------------
 # The staged executor (JAX :754-850): one call per stage per bounce, driven
 # by a host loop over device-resident state; nothing is read back. Each
-# stage runs under a profiler range of its JAX name, the counterpart of the
-# per-stage jits that an XLA profile shows by name, so that a trace
-# attributes device time to stages. Differences: no jit or buffer donation
-# (eager), and config.remat is not applied (JAX's stages have no
-# checkpoint either).
+# stage runs under a host span of its JAX name (telemetry.named_stage), the
+# counterpart of the per-stage jits that an XLA profile shows by name, so
+# that a trace attributes device time to stages. Differences: no jit or
+# buffer donation (eager), and config.remat is not applied (JAX's stages
+# have no checkpoint either).
 # ---------------------------------------------------------------------------
 
-def _named_stage(fn):
-    """Run fn under torch.profiler.record_function(fn.__name__)."""
-    @functools.wraps(fn)
-    def run(*args, **kwargs):
-        with torch.profiler.record_function(fn.__name__):
-            return fn(*args, **kwargs)
-    return run
-
-
-@_named_stage
+@telemetry.named_stage
 def _stage_generate(view, sample_base, config):
     return generate_eye_rays(view, config, sample_base)
 
 
-@_named_stage
+@telemetry.named_stage
 def _stage_prepare(scene, config):
     return prepare_cluster_pay(scene, config)
 
 
-@_named_stage
+@telemetry.named_stage
 def _stage_trace(scene, o, d, alive, config, pay_tiles=None, sort_key="dir"):
     """The closest hit and its refine: (t, prim, u, v, payload)."""
     return _intersect(scene, o, d, alive, config, pay_tiles, sort_key)
 
 
-@_named_stage
+@telemetry.named_stage
 def _stage_shade(scene, view, paths, acc, cam_seed, li, t, prim, u, v, config,
                  payload=None):
     """shade_bounce, plus the bounce's live lanes and NEE connections as
@@ -923,18 +968,18 @@ def _stage_shade(scene, view, paths, acc, cam_seed, li, t, prim, u, v, config,
     return paths, acc, cam_seed, shadow, n_alive, shadow["conn_ok"].sum()
 
 
-@_named_stage
+@telemetry.named_stage
 def _stage_occlude(scene, o, d, tmax, config):
     return _occluded(scene, o, d, tmax, config)
 
 
-@_named_stage
+@telemetry.named_stage
 def _stage_apply(paths, acc, shadow, occ, config):
     acc, paths = apply_shadow(config, paths, acc, shadow, occ)
     return paths, acc
 
 
-@_named_stage
+@telemetry.named_stage
 def _stage_finish(paths, acc, ext_counts, conn_counts, cam_seed, config):
     stats = dict(extension_rays=torch.stack(ext_counts),
                  shadow_rays=torch.stack(conn_counts))
@@ -976,18 +1021,24 @@ def trace_paths_unrolled(scene, view, config: RenderConfig, state: AccumState):
     as the skipped bounce of trace_paths does, so the result is
     trace_paths's. With config.remat each bounce's refine + shade is
     recomputed (bounce_step), where JAX checkpoints the whole bounce.
-    Returns (acc_delta [W*H,4], cam_seed', stats)."""
+    Returns (acc_delta [W*H,4], cam_seed', stats). Marks its stages up to
+    finish; the caller closes the pass with the end mark."""
+    dev = view.pos.device
+    pay_tiles = prepare_cluster_pay(scene, config, mark=dev)
+    telemetry.mark("generate", dev)
     paths, acc = _add_buffers(
         generate_eye_rays(view, config, state.sample_count), config)
     cam_seed = state.cam_seed
     ext, conn = [], []
-    pay_tiles = prepare_cluster_pay(scene, config)
     for li in range(config.max_path_length):
+        if li:   # bounce 0's generate mark opened the eye rays
+            telemetry.mark("generate", dev)
         ext.append(paths["alive"].sum())
         paths, acc, cam_seed, n_conn = bounce_step(
             scene, view, config, paths, acc, cam_seed, li,
             pay_tiles=pay_tiles, sort_key=_sort_key(config, li))
         conn.append(n_conn)
+    telemetry.mark("finish", dev)
     return _finish_pass(config, paths, acc,
                         dict(extension_rays=torch.stack(ext),
                              shadow_rays=torch.stack(conn)),
@@ -999,7 +1050,9 @@ def _unrolled_pass(scene, view, state: AccumState, config: RenderConfig):
     new state."""
     acc_delta, cam_seed, stats = trace_paths_unrolled(scene, view, config,
                                                       state)
-    return _next_state(state, config, acc_delta, cam_seed), stats
+    state = _next_state(state, config, acc_delta, cam_seed)
+    telemetry.mark("end", view.pos.device)
+    return state, stats
 
 
 _unrolled_graph = graphs.CapturedCall("render_pass_unrolled", _unrolled_pass)
@@ -1019,12 +1072,14 @@ def _regen_pass(scene, view, state: AccumState, config: RenderConfig):
     state."""
     acc_delta, count_px, cam_seed, pool, stats = trace_paths_regen(
         scene, view, config, state)
-    return AccumState(
+    state = AccumState(
         accumulator=state.accumulator + acc_delta,
         sample_count=state.sample_count + config.spp_per_pass,
         cam_seed=cam_seed,
         pixel_count=state.pixel_count + count_px,
-        pool=pool), stats
+        pool=pool)
+    telemetry.mark("end", view.pos.device)
+    return state, stats
 
 
 _regen_graph = graphs.CapturedCall("_render_pass_regen_jit", _regen_pass)
