@@ -27,12 +27,16 @@ Phases; any failure exits non-zero before the result line is printed:
      and occlusion on >= 99.99% of lanes); CUDA-event times of kernel and
      plain version, Grays/s, and the bound computed from the BVH2 walk's
      counts; then both kernels' times on the numpy single-level tree for
-     the same three batches; [shade kernel] the shade kernel (262,144
-     lanes, the triangle gathers) against the composed code at the pass's
-     first bounce and at a bounce one pass in (render/kernels/shade.py
-     agreement: each output's share of lanes off), and its ms at the first
-     bounce (CUDA events over SHADE_ITERS launches) beside its byte bound
-     (_shade_bytes) and the composed code's eager ms;
+     the same three batches; [shade kernel] the Lambert shade kernel
+     (262,144 lanes, the triangle gathers) against the composed code at the
+     pass's first bounce and at a bounce one pass in (render/kernels/
+     shade.py agreement: each output's share of lanes off), and its ms at
+     the first bounce (CUDA events over SHADE_ITERS launches) beside its
+     byte bound (_shade_bytes) and the composed code's eager ms; then the
+     Disney shade kernel the same way on the bathroom under the benchmark's
+     Disney materials (disney_bathroom), and [disney kernel] that
+     scene's forward passes as phase 3 runs them, under its launch gates
+     (16 Disney shade kernels a replay);
   3. the main path: bathroom 512x512, path 16, path regeneration, through
      render_pass_auto (the regen executor), every graph entry point's
      graph freed first — 2 warm-ups (eager, then the CUDA graph's
@@ -42,8 +46,9 @@ Phases; any failure exits non-zero before the result line is printed:
      times through its wrapper, every later pass replays the graph and
      launches none through them, and the profiled replay runs 16
      closest-hit, 16 any-hit and 16 shade kernels by the profiler's count
-     (a call that needs gradients, Disney or the filter runs no shade
-     kernel: their gates want 0);
+     (a call that needs gradients, the filter or IBL sky NEE, as the
+     [disney] phase's, runs no shade kernel: their gates want 0; a forward
+     Disney pass would run 16 of the Disney kernel);
   4. a 64x64 Cornell box rendered on the card and on the CPU (plain
      versions), compared per pixel;
   5. [train] the fwd+bwd headline (bench.py:291-297): bathroom 512x512,
@@ -315,6 +320,7 @@ AGREE_MIN = 0.9999         # fraction of lanes that must agree
 # cores, dense TF32 on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 SHADE_KERNEL = "shade_bounce_kernel"   # csrc/shade.cu, by the profiler's name
+SHADE_DISNEY_KERNEL = "shade_disney_kernel"   # its Disney kernel
 SHADE_ITERS = 20           # timed launches of the shade kernel
 SHADE_PLAIN_ITERS = 3      # timed calls of the composed shade stage
 # the triangle rows the shade kernel gathers (scene.tris, by the hit prim)
@@ -325,6 +331,10 @@ SHADE_PLAIN_ITERS = 3      # timed calls of the composed shade stage
 SHADE_TRI_ROWS = ("n0", "n1", "n2", "face_n", "uv0", "uv1", "uv2", "alpha",
                   "area", "lod", "tangent", "bitangent", "mat", "ltri")
 SHADE_PAY_ROWS = 38 - 6 + 15
+# the Disney kernel reads every material row of the payload (its twelve
+# more fields and four more texture ids); on the gathers they come from the
+# material table, which neither bound counts
+SHADE_PAY_ROWS_DISNEY = 38 - 6 + 28
 FP32_OPS_PER_S = 67e12
 TF32_OPS_PER_S = 495e12
 # [cluster] (a): the cluster kernels (3xTF32 forms) against their plain
@@ -590,16 +600,19 @@ def _shade_bytes(args, out, payload):
     `args` (shade_kernel's arguments; `out` the outputs _args allocated):
     each lane's state, hit and depth in, its new state and shadow ray out,
     and its triangle's rows (gathers) or the payload rows it reads
-    (SHADE_TRI_ROWS, SHADE_PAY_ROWS). Not counted: texels, lights, the
-    material table (a few KB, gathered by the triangle's material id)."""
+    (SHADE_TRI_ROWS; SHADE_PAY_ROWS, SHADE_PAY_ROWS_DISNEY for the Disney
+    kernel). Not counted: texels, lights, the material table (a few KB,
+    gathered by the triangle's material id)."""
     scene, _, cfg, paths, acc, _, depth, t, prim, u, v = args
+    pay_rows = (SHADE_PAY_ROWS_DISNEY if cfg.bsdf == "disney"
+                else SHADE_PAY_ROWS)
     lane = lambda x: x.element_size() * (x[0].numel() if x.dim() > 1 else 1)
     lane_in = sum(lane(paths[k]) for k in (
         "origin", "dir", "throughput", "bsdf_pdf", "last_n", "prev_specular",
         "n_diffuse", "alive", "pixel", "sample", "path_idx"))
     lane_in += sum(lane(x) for x in (acc, t, u, v, depth)) + 4  # prim, int32
     lane_out = sum(lane(x) for x in out.values() if x.dim())
-    rows = (SHADE_PAY_ROWS * payload.element_size() if payload is not None
+    rows = (pay_rows * payload.element_size() if payload is not None
             else sum(lane(getattr(scene.tris, k)) for k in SHADE_TRI_ROWS))
     return cfg.n_paths * (lane_in + lane_out + rows), dict(
         lane_in=lane_in, lane_out=lane_out, rows=rows)
@@ -607,7 +620,8 @@ def _shade_bytes(args, out, payload):
 
 def shade_kernel_check(scene, view, cfg, dev, iters=SHADE_ITERS):
     """[shade kernel]: on cfg's intersector (gathers on "auto", the payload
-    on "cluster"), at 262,144 lanes at 512x512: the kernel through its
+    on "cluster") and BSDF (the Lambert or the Disney kernel), at 262,144
+    lanes at 512x512: the kernel through its
     wrapper against the composed code (_shade_composed) on the same inputs
     at the pass's first bounce (a fresh regen pool) and at a bounce one
     pass in, where the lanes stand at many path depths, held to
@@ -623,7 +637,10 @@ def shade_kernel_check(scene, view, cfg, dev, iters=SHADE_ITERS):
     from lighthouse2_tpu_torch.render.kernels import shade as shade_k
 
     n = cfg.n_paths
-    res = dict(intersector=cfg.intersector, lanes=n)
+    disney = cfg.bsdf == "disney"
+    count = lambda: (shade_k.shade_kernel.disney_launches if disney
+                     else shade_k.shade_kernel.launches)
+    res = dict(intersector=cfg.intersector, bsdf=cfg.bsdf, lanes=n)
     with torch.no_grad():
         state = wf.ensure_regen_state(view, wf.AccumState.make(cfg, dev),
                                       cfg)
@@ -631,13 +648,13 @@ def shade_kernel_check(scene, view, cfg, dev, iters=SHADE_ITERS):
         for name, pool in (("bounce0", state.pool), ("one_pass_in", mid)):
             args, payload = _shade_inputs(scene, view, cfg, state, pool)
             if not shade_k.use_kernel(*args[:5], args[7:], payload):
-                raise AssertionError("[shade kernel] the rule did not pick "
-                                     "the kernel for a forward Lambert "
-                                     "bounce")
+                raise AssertionError(f"[shade kernel] the rule did not pick "
+                                     f"the kernel for a forward {cfg.bsdf} "
+                                     f"bounce")
             want = wf._shade_composed(*args, payload=payload)
-            before = shade_k.shade_kernel.launches
+            before = count()
             got = shade_k.shade_kernel(*args, payload=payload)
-            launches = shade_k.shade_kernel.launches - before
+            launches = count() - before
             off, agree = shade_k.agreement(want, got)
             res[name] = dict(agree=agree, depths=int(args[6].max()),
                              launches=launches, off=off)
@@ -649,7 +666,8 @@ def shade_kernel_check(scene, view, cfg, dev, iters=SHADE_ITERS):
         launch_args, out, keep = shade_k._args(*args, payload)
         stream = torch.cuda.current_stream(dev).cuda_stream
         lib = shade_k._load()
-        kern = _time_ms(lambda: shade_k._check_rc(lib.lh2_shade_bounce(
+        launch = lib.lh2_shade_disney if disney else lib.lh2_shade_bounce
+        kern = _time_ms(lambda: shade_k._check_rc(launch(
             ctypes.byref(launch_args), stream), "shade_kernel"), iters, dev)
         plain = _time_ms(lambda: wf._shade_composed(*args, payload=payload),
                          SHADE_PLAIN_ITERS, dev)
@@ -676,6 +694,20 @@ def shade_kernel_check(scene, view, cfg, dev, iters=SHADE_ITERS):
     return res
 
 
+def disney_bathroom(cfg, dev):
+    """The bathroom under the benchmark's Disney materials (configuration
+    bathroom-512-disney, benchmark/scenes/bathroom_disney.py) at cfg's size
+    and path length, synced to `dev`: (scene, view, its config)."""
+    from benchmark import harness
+    with open(os.path.join(harness.ROOT, "benchmark", "configs",
+                           "bathroom-512-disney.json")) as fh:
+        conf = dict(json.load(fh), width=cfg.width, height=cfg.height,
+                    max_path_length=cfg.max_path_length)
+    raw = harness.load("scenes", conf["scene"]).build(conf)
+    scene, view, _ = harness.build_program_scene(raw, conf, dev)
+    return scene, view, harness.render_config(conf)
+
+
 def _counts():
     from lighthouse2_tpu_torch.render.kernels.trace import (
         trace_closest, trace_occluded)
@@ -692,7 +724,8 @@ def _cluster_counts():
 
 def _shade_count():
     from lighthouse2_tpu_torch.render.kernels.shade import shade_kernel
-    return dict(shade_kernel=shade_kernel.launches)
+    return dict(shade_kernel=shade_kernel.launches,
+                shade_disney=shade_kernel.disney_launches)
 
 
 def _zero_counts():
@@ -706,6 +739,7 @@ def _zero_counts():
     for fn in (trace_closest, trace_occluded, cluster_closest,
                cluster_occluded, shade_kernel):
         fn.launches = 0
+    shade_kernel.disney_launches = 0
 
 
 def _tally():
@@ -780,9 +814,10 @@ def _replay_gates(tag, cfg, scene, per_call, kinds, prof, grad=False):
         raise AssertionError(tag + "; ".join(bad))
 
 
-def main_path(scene, view, cfg, dev, passes):
-    """Phase 3. Returns the numbers of the timed passes and of one more,
-    profiled, and the state."""
+def main_path(scene, view, cfg, dev, passes, tag="[main] "):
+    """Phase 3 (and [disney kernel], the forward Disney pass of the shade
+    check's scene, under `tag`). Returns the numbers of the timed passes
+    and of one more, profiled, and the state."""
     import torch
     from lighthouse2_tpu_torch.render.wavefront import (
         AccumState, finalize, render_pass_auto)
@@ -829,8 +864,8 @@ def main_path(scene, view, cfg, dev, passes):
         image_finite=bool(torch.isfinite(img).all()),
         max_memory_allocated=(torch.cuda.max_memory_allocated(dev)
                               if dev.type == "cuda" else None))
-    print("[main] " + json.dumps(res), flush=True)
-    _replay_gates("[main] ", cfg, scene, per_call,
+    print(tag + json.dumps(res), flush=True)
+    _replay_gates(tag, cfg, scene, per_call,
                   ("eager", "capture") + ("replay",) * (passes + 1),
                   prof["kernel_launches"])
     if not (res["image_finite"] and res["image_mean"] > 0):
@@ -881,7 +916,7 @@ def _profile(fn, dev, tag, shares=None, cpu=True):
     rows.sort(reverse=True)
     total = sum(r[0] for r in rows)
     kernels = ("closest_kernel", "occluded_kernel", "cluster_closest_kernel",
-               "cluster_occluded_kernel", SHADE_KERNEL)
+               "cluster_occluded_kernel", SHADE_KERNEL, SHADE_DISNEY_KERNEL)
     name = _kernel_name
     share = {k: sum(r[0] for r in rows if name(r[1]) == k) / max(total, 1e-9)
              for k in kernels}
@@ -3241,7 +3276,9 @@ def _kernel_syms(cfg, scene, grad=False):
         counts = ("trace_closest", "trace_occluded")
         syms = ("closest_kernel", "occluded_kernel")
     if not grad and config_takes_kernel(cfg, scene):
-        counts, syms = counts + ("shade_kernel",), syms + (SHADE_KERNEL,)
+        shade = (("shade_disney", SHADE_DISNEY_KERNEL) if cfg.bsdf == "disney"
+                 else ("shade_kernel", SHADE_KERNEL))
+        counts, syms = counts + shade[:1], syms + shade[1:]
     return counts, syms
 
 
@@ -3663,6 +3700,11 @@ def main() -> int:
           + json.dumps(single_ms), flush=True)
     lap("kernels")
     shade_auto = shade_kernel_check(scene, view, cfg, dev)
+    d_scene, d_view, d_cfg = disney_bathroom(cfg, dev)
+    shade_disney = shade_kernel_check(d_scene, d_view, d_cfg, dev)
+    disney_fwd, _ = main_path(d_scene, d_view, d_cfg, dev, passes=3,
+                              tag="[disney kernel] ")
+    del d_scene, d_view
     main_res, state = main_path(scene, view, cfg, dev, passes=3)
     print(f"[main] {main_res['mrays_per_s']:.3f} Mrays/s on {card} "
           f"(bathroom {size}x{size}, path {path_len}, regen)", flush=True)
@@ -3925,6 +3967,21 @@ def main() -> int:
                               for b in ("bounce0", "one_pass_in")}
                        for rows, r in (("gathers", shade_auto),
                                        ("payload", clus["shade"]))},
+        library_ms=None))
+    sym = SHADE_DISNEY_KERNEL
+    rows.append(dict(
+        name="shade_disney_kernel", route="cuda",
+        source="lighthouse2_tpu_torch/csrc/shade.cu",
+        replaces=None, launches=shade_disney["bounce0"]["launches"],
+        launches_disney_ibl=_launch_summary(disney_res, "shade_disney", sym),
+        launches_main=_launch_summary(disney_fwd, "shade_disney", sym),
+        main_path_ms_per_launch=disney_fwd["profile"][
+            "kernel_ms_per_launch"][sym],
+        ms=dict(gathers=shade_disney["ms"]),
+        bound_ms=dict(gathers=shade_disney["bound_ms"]), bound_by="bytes",
+        composed_eager_ms=dict(gathers=shade_disney["composed_eager_ms"]),
+        lanes_off_max={b: max(shade_disney[b]["off"].values())
+                       for b in ("bounce0", "one_pass_in")},
         library_ms=None))
     print(json.dumps({"kernels": rows}))
     print(card)

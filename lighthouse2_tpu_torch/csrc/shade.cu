@@ -1,21 +1,33 @@
-// The shade stage of one bounce as one kernel, for the forward Lambert path.
+// The shade stage of one bounce as one kernel, for the forward Lambert path
+// (shade_bounce_kernel) and the forward Disney path (shade_disney_kernel).
 //
-// What it replaces. No Pallas kernel: the JAX package leaves shading to
+// What they replace. No Pallas kernel: the JAX package leaves shading to
 // XLA's fusions (lighthouse2_tpu/render/wavefront.py shade_bounce, with
-// render/shading.py, lights.py, bsdf_lambert.py, textures.py, sky.py and
-// core/rng.py, bluenoise.py). The port composed the same function from
-// ~2,700 small ATen kernels a bounce (render/wavefront.py shade_bounce),
-// each costing about its launch-to-launch spacing and not its bytes. This
-// kernel runs the whole stage, from the sanitised hit to the new path state
-// and the shadow ray, in one launch; render/kernels/shade.py says when.
+// render/shading.py, lights.py, bsdf_lambert.py, bsdf_disney.py,
+// textures.py, sky.py and core/rng.py, bluenoise.py). The port composed the
+// same function from small ATen kernels (render/wavefront.py
+// _shade_composed): ~2,700 a bounce for Lambert, ~4,400 for Disney, whose
+// BSDF evaluates all four lobes on every lane twice a bounce (the NEE, the
+// MIS sum) and builds three candidate directions to keep one. Each op cost
+// about its launch-to-launch spacing and not its bytes. A kernel runs the
+// whole stage, from the sanitised hit to the new path state and the shadow
+// ray, in one launch; render/kernels/shade.py says when.
 //
-// What bounds it on this card. Bytes: a lane reads 122 B of path state,
-// hit and depth, 124 B of its triangle's rows (gathered) or 47 of the
+// What bounds them on this card. Lambert: bytes. A lane reads 122 B of path
+// state, hit and depth, 124 B of its triangle's rows (gathered) or 47 of the
 // cluster payload's 72 rows (188 B), its material's row, a few texels and
 // the lights, and writes 116 B of new path state and shadow ray; a few
 // hundred flops and a handful of transcendentals a lane (two sweeps over
 // the lights) are far below the card's rate. At 262,144 lanes that is
-// ~95-112 MB a bounce, ~28-33 us at 3.35 TB/s.
+// ~95-112 MB a bounce, ~28-33 us at 3.35 TB/s. Disney reads the same lane
+// state and rows, plus its material's nine more fields and four texture
+// ids (from the material table, or the payload's material rows), so its
+// byte bound is nearly Lambert's; but a lane evaluates two four-lobe BSDFs
+// and samples GGX or GTR1 (square roots, logarithms and a power in each
+// microfacet term), and its warps split between the glass, the picked
+// lobes and the dead lanes. On an H100 it shades a bounce of the bathroom
+// at 512x512 in ~0.14 ms (gathers) / ~0.16 ms (payload), 20% / 23% of its
+// byte bound: arithmetic and divergence, not bytes, set its time.
 //
 // What the design does about it. One lane a thread in 128-thread blocks;
 // every intermediate stays in registers, so each byte of lane state is read
@@ -24,12 +36,22 @@
 // through const __restrict__ pointers and __ldg: no pack of triangle or
 // material rows is built. The lights are walked in a loop (the composed code
 // builds [L, N] matrices); a lane keeps no per-light array, it recomputes
-// the picked light's potential, which rounds the same way. The kernel uses
-// 112 registers with no spills (nvcc -Xptxas -v); on an H100 it shades a
-// bounce of the bathroom at 512x512 in ~0.10 ms (gathers) / ~0.11 ms
-// (payload), 28% / 31% of the byte bound. Measured and not kept (PERF.md):
-// register caps of 96, 80 and 64 (they spill; at most 7% faster) and 64-
-// or 256-thread blocks (within 1%).
+// the picked light's potential, which rounds the same way. The kernel body
+// is one template (shade_lane) on the BSDF, so the two kernels share every
+// line but the BSDF's and each gets its own register allocation: the
+// Lambert kernel uses 112 registers with no spills (nvcc -Xptxas -v); on an
+// H100 it shades a bounce of the bathroom at 512x512 in ~0.10 ms (gathers)
+// / ~0.11 ms (payload), 28% / 31% of the byte bound. Measured and not kept
+// (PERF.md): register caps of 96, 80 and 64 (they spill; at most 7% faster)
+// and 64- or 256-thread blocks (within 1%). The Disney kernel (126
+// registers, no spills) computes a lane's lobe weights, tints, GGX and
+// GTR1 alphas once (the composed code once per call of each lobe
+// function), evaluates the BSDF toward the light only on lanes whose
+// connection can count, samples only on lanes that may extend, builds only
+// the picked lobe's direction (or the dielectric's), and still sums all
+// four lobes at the sampled direction, as disney.h does. It counts the
+// lobe picks (render/wavefront.py's `marks` calls) in shared memory and
+// adds them to the device's counts with at most one atomic a lobe a block.
 //
 // Numerics. Each operation follows the composed PyTorch code in order, so
 // that the RNG stream (integer, bit for bit) and the branch decisions of a
@@ -37,10 +59,13 @@
 // csrc/trace.cu, so each float operation rounds as the one ATen op it
 // replaces; a division by a Python scalar multiplies by its float
 // reciprocal (ATen's div by a CPU scalar), and `c / tensor` is
-// reciprocal(tensor) * c (torch.Tensor.__rtruediv__). Sums over three
-// components add left to right, as ATen's reductions do for three values;
-// sums over the lights add in row order, where ATen's reduction may pair
-// them otherwise (a last-bit difference in a light's pick probability).
+// reciprocal(tensor) * c (torch.Tensor.__rtruediv__). A dot product adds
+// as ATen's CUDA sum over a contiguous [N, 3] does, (x0 + x2) + x1, and a
+// dot the composed code writes out (render/lights.py) left to right;
+// torch.linalg.cross fuses each first product (fmaf), as ATen's kernel,
+// compiled with contraction, does. Sums over the lights add in row order,
+// where ATen's reduction may pair them otherwise (a last-bit difference in
+// a light's pick probability).
 // Transcendentals are the CUDA math library's, as ATen's.
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -62,6 +87,8 @@
 #define BN_N 128
 #define BN_SHIFT_X 59
 #define BN_SHIFT_Y 83
+#define PI_F 3.141592653589793f
+#define N_LOBES 5                // utils/telemetry.py LOBES
 
 // Rows of the cluster payload (bvh/clusters.py PAY_*); the loader checks
 // them against the Python constants (lh2_shade_layout).
@@ -118,6 +145,15 @@ struct ShadeArgs {
   uint8_t* alive_out; float* acc_out; long long* cam_seed_out;
   float* sh_o; float* sh_d; float* sh_tmax; float* sh_pot; uint8_t* sh_conn;
   uint8_t* sh_direct;
+  // the Disney fields of the materials [M] (gathers; read by the Disney
+  // kernel only), and the device's lobe counts [5] or null (no count)
+  const float* m_metallic; const float* m_subsurface; const float* m_specular;
+  const float* m_spec_tint; const float* m_anisotropic; const float* m_sheen;
+  const float* m_sheen_tint; const float* m_clearcoat;
+  const float* m_clearcoat_gloss; const int* m_tex_sheen;
+  const int* m_tex_clearcoat; const int* m_tex_specular;
+  const int* m_tex_anisotropic;
+  unsigned long long* lobes;
   // ints
   int n; int li; int lt; int lp; int ls; int ld;
   int pool_n; int desc_mips; int mip_levels; int base_maps; int param_maps;
@@ -145,7 +181,13 @@ __device__ __forceinline__ V3 scl(V3 a, float s) {
   return mk(a.x * s, a.y * s, a.z * s);
 }
 __device__ __forceinline__ V3 neg(V3 a) { return mk(-a.x, -a.y, -a.z); }
+// geometry.dot, (a * b).sum(-1): ATen's CUDA sum over a contiguous last
+// dimension of 3 adds the first and the third, then the second
 __device__ __forceinline__ float dot(V3 a, V3 b) {
+  return (a.x * b.x + a.z * b.z) + a.y * b.y;
+}
+// a dot written out in the composed code (render/lights.py): left to right
+__device__ __forceinline__ float dot_ltr(V3 a, V3 b) {
   return a.x * b.x + a.y * b.y + a.z * b.z;
 }
 // torch.clamp(x, min=lo) / clamp(x, max=hi): NaN stays NaN
@@ -166,9 +208,10 @@ __device__ __forceinline__ V3 fixnan(V3 a) {
 __device__ __forceinline__ V3 normalize(V3 a) {
   return scl(a, rsqrtf(cmin(dot(a, a), 1e-20f)));
 }
+// torch.linalg.cross: ATen's CUDA kernel fuses each first product
 __device__ __forceinline__ V3 cross(V3 a, V3 b) {
-  return mk(a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z,
-            a.x * b.y - a.y * b.x);
+  return mk(fmaf(a.y, b.z, -(a.z * b.y)), fmaf(a.z, b.x, -(a.x * b.z)),
+            fmaf(a.x, b.y, -(a.y * b.x)));
 }
 __device__ __forceinline__ V3 ld3(const float* __restrict__ p, long long i) {
   return mk(__ldg(p + 3 * i), __ldg(p + 3 * i + 1), __ldg(p + 3 * i + 2));
@@ -340,28 +383,29 @@ __device__ float potential(const ShadeArgs& a, int k, V3 at, V3 n,
   if (k < a.lt) {
     const V3 l = normalize3(sub(target, at), d2);
     const float att = 1.0f / cmin(d2, 1e-12f);
-    const float ln_dot_l = cmin(-dot(ld3(a.tri_n, k), l), 0.0f);
-    const float n_dot_l = cmin(dot(n, l), 0.0f);
+    const float ln_dot_l = cmin(-dot_ltr(ld3(a.tri_n, k), l), 0.0f);
+    const float n_dot_l = cmin(dot_ltr(n, l), 0.0f);
     return __ldg(a.tri_energy + k) * ln_dot_l * n_dot_l * att;
   }
   k -= a.lt;
   if (k < a.lp) {
     const V3 l = normalize3(sub(ld3(a.pt_pos, k), at), d2);
-    return __ldg(a.pt_energy + k) * cmin(dot(n, l), 0.0f) / cmin(d2, 1e-12f);
+    return __ldg(a.pt_energy + k) * cmin(dot_ltr(n, l), 0.0f)
+           / cmin(d2, 1e-12f);
   }
   k -= a.lp;
   if (k < a.ls) {
     const V3 l = normalize3(sub(ld3(a.sp_pos, k), at), d2);
     const float co = __ldg(a.sp_cos_out + k);
-    const float fall = (cmin(-dot(l, ld3(a.sp_dir, k)), 0.0f) - co)
+    const float fall = (cmin(-dot_ltr(l, ld3(a.sp_dir, k)), 0.0f) - co)
                        / cmin(__ldg(a.sp_cos_in + k) - co, 1e-6f);
     const float f01 = fall != fall ? fall
                       : (fall < 0.0f ? 0.0f : (fall > 1.0f ? 1.0f : fall));
-    return __ldg(a.sp_energy + k) * f01 * cmin(dot(n, l), 0.0f)
+    return __ldg(a.sp_energy + k) * f01 * cmin(dot_ltr(n, l), 0.0f)
            / cmin(d2, 1e-12f);
   }
   k -= a.ls;
-  return __ldg(a.dl_energy + k) * cmin(-dot(n, ld3(a.dl_dir, k)), 0.0f);
+  return __ldg(a.dl_energy + k) * cmin(-dot_ltr(n, ld3(a.dl_dir, k)), 0.0f);
 }
 
 // random_barycentrics (core/sampling.py): 16 base-4 digits
@@ -431,8 +475,8 @@ __device__ LightSample random_point_on_light(const ShadeArgs& a, float r0,
   if (pick < a.lt) {
     const V3 p = AREA_POINT(pick);
     const V3 lr = normalize3(sub(ip, p), sq);
-    const float ln_dot_l = dot(lr, ld3(a.tri_n, pick));
-    const float to_n = dot(lr, n);
+    const float ln_dot_l = dot_ltr(lr, ld3(a.tri_n, pick));
+    const float to_n = dot_ltr(lr, n);
     const bool ok = ln_dot_l > 0.0f && to_n < 0.0f;
     const float den = __ldg(a.tri_area + pick) * ln_dot_l;
     s.light_pdf = ok ? sq / cmin(den, 1e-30f) : 0.0f;
@@ -442,7 +486,7 @@ __device__ LightSample random_point_on_light(const ShadeArgs& a, float r0,
     const int k = pick - a.lt;
     const V3 p = ld3(a.pt_pos, k);
     const V3 lr = normalize3(sub(ip, p), sq);
-    s.light_pdf = dot(lr, n) < 0.0f ? sq : 0.0f;
+    s.light_pdf = dot_ltr(lr, n) < 0.0f ? sq : 0.0f;
     s.point = p;
     s.color = ld3(a.pt_rad, k);
   } else if (pick < a.lt + a.lp + a.ls) {
@@ -450,17 +494,17 @@ __device__ LightSample random_point_on_light(const ShadeArgs& a, float r0,
     const V3 p = ld3(a.sp_pos, k);
     const V3 lr = normalize3(sub(ip, p), sq);
     const float co = __ldg(a.sp_cos_out + k);
-    const float dfall = (cmin(dot(lr, ld3(a.sp_dir, k)), 0.0f) - co)
+    const float dfall = (cmin(dot_ltr(lr, ld3(a.sp_dir, k)), 0.0f) - co)
                         / cmin(__ldg(a.sp_cos_in + k) - co, 1e-6f);
     const float lnl = cmax(dfall, 1.0f);
-    const bool ok = lnl > 0.0f && dot(lr, n) < 0.0f;
+    const bool ok = lnl > 0.0f && dot_ltr(lr, n) < 0.0f;
     s.light_pdf = ok ? sq / cmin(lnl, 1e-30f) : 0.0f;
     s.point = p;
     s.color = ld3(a.sp_rad, k);
   } else {
     const int k = pick - a.lt - a.lp - a.ls;
     const V3 dd = ld3(a.dl_dir, k);
-    s.light_pdf = dot(dd, n) < 0.0f ? 1.0f : 0.0f;
+    s.light_pdf = dot_ltr(dd, n) < 0.0f ? 1.0f : 0.0f;
     s.point = sub(ip, scl(dd, DIR_LIGHT_DISTANCE));
     s.color = ld3(a.dl_rad, k);
   }
@@ -482,16 +526,21 @@ __device__ float light_pick_prob(const ShadeArgs& a, int ltri, V3 o,
   return sum > 0.0f ? p / sum : 0.0f;
 }
 
-// ------------------------------------------------- the shading data (Lambert)
+// ------------------------------------------------------- the shading data
 struct Shading {
   V3 color, absorption, n_geom, n_shading;
   float roughness, transmission, eta, area, face_dir;
   int ltri;
   bool emissive, cutout;
+  // the Disney path's fields (kDisney)
+  V3 tangent, bitangent;
+  float metallic, subsurface, specular, spec_tint, anisotropic, sheen,
+      sheen_tint, clearcoat, clearcoat_gloss;
 };
 
 // get_shading_data / _shading_reattached, then _assemble_shading, for the
-// fields the Lambert path reads
+// fields the Lambert path reads, and with kDisney the Disney path's too
+template <bool kDisney>
 __device__ Shading shading_data(const ShadeArgs& a, long long i, V3 d,
                                 float t, int prim, float u, float v) {
   Shading sd;
@@ -549,6 +598,21 @@ __device__ Shading shading_data(const ShadeArgs& a, long long i, V3 d,
     m[21] = (float)__ldg(a.m_tex_rough + mi);
     m[22] = (float)__ldg(a.m_tex_mr + mi);
     m[27] = (float)__ldg(a.m_tex_absorption + mi);
+    if (kDisney) {
+      m[6] = __ldg(a.m_metallic + mi);
+      m[7] = __ldg(a.m_subsurface + mi);
+      m[8] = __ldg(a.m_specular + mi);
+      m[10] = __ldg(a.m_spec_tint + mi);
+      m[11] = __ldg(a.m_anisotropic + mi);
+      m[12] = __ldg(a.m_sheen + mi);
+      m[13] = __ldg(a.m_sheen_tint + mi);
+      m[14] = __ldg(a.m_clearcoat + mi);
+      m[15] = __ldg(a.m_clearcoat_gloss + mi);
+      m[23] = (float)__ldg(a.m_tex_sheen + mi);
+      m[24] = (float)__ldg(a.m_tex_clearcoat + mi);
+      m[25] = (float)__ldg(a.m_tex_specular + mi);
+      m[26] = (float)__ldg(a.m_tex_anisotropic + mi);
+    }
   }
   const V3 n_int = normalize(add(add(scl(n0, w), scl(n1, u)), scl(n2, v)));
   const float uvx = uv0x * w + uv1x * u + uv2x * v;
@@ -572,8 +636,13 @@ __device__ Shading shading_data(const ShadeArgs& a, long long i, V3 d,
   }
   if ((a.base_maps & 4) && tex_r >= 0)
     rough = rough * fetch_trilinear(a, tex_r, uvx, uvy, lam).c[0];
-  if ((a.base_maps & 8) && tex_mr >= 0)
-    rough = m[9] * fetch_trilinear(a, tex_mr, uvx, uvy, lam).c[1];
+  float metallic = m[6];
+  if ((a.base_maps & 8) && tex_mr >= 0) {
+    // glTF metallicRoughness: roughness in G, metallic in B
+    const Texel mr = fetch_trilinear(a, tex_mr, uvx, uvy, lam);
+    rough = m[9] * mr.c[1];
+    if (kDisney) metallic = m[6] * mr.c[2];
+  }
   if (((a.param_maps >> 4) & 1) && tex_ab >= 0) {
     const Texel tx = fetch_trilinear(a, tex_ab, uvx, uvy, lam);
     absorption = mk(absorption.x * tx.c[0], absorption.y * tx.c[1],
@@ -605,6 +674,27 @@ __device__ Shading shading_data(const ShadeArgs& a, long long i, V3 d,
   sd.transmission = m[16];
   sd.eta = m[17];
   sd.n_shading = n_shading;
+  if (kDisney) {
+    // per-param texture-or-constant slots: the constant scales the texel
+    float p[4] = {m[12], m[14], m[8], m[11]};   // sheen, clearcoat, specular,
+#pragma unroll                                 // anisotropic: bits 0..3
+    for (int k = 0; k < 4; ++k) {
+      const int tid = (int)m[23 + k];
+      if (((a.param_maps >> k) & 1) && tid >= 0)
+        p[k] = p[k] * fetch_trilinear(a, tid, uvx, uvy, lam).c[0];
+    }
+    sd.metallic = metallic;
+    sd.subsurface = m[7];
+    sd.specular = p[2];
+    sd.spec_tint = m[10];
+    sd.anisotropic = p[3];
+    sd.sheen = p[0];
+    sd.sheen_tint = m[13];
+    sd.clearcoat = p[1];
+    sd.clearcoat_gloss = m[15];
+    sd.tangent = tangent;
+    sd.bitangent = bitangent;
+  }
   return sd;
 }
 
@@ -690,14 +780,380 @@ __device__ BsdfSample lambert_sample(const Shading& sd, V3 d, float dist,
   return s;
 }
 
-// ------------------------------------------------------------- the kernel
-__global__ void __launch_bounds__(BLOCK)
-shade_bounce_kernel(const __grid_constant__ ShadeArgs a) {
-  const long long i = (long long)blockIdx.x * BLOCK + threadIdx.x;
-  const uint32_t cam_in = (uint32_t)__ldg(a.cam_seed);
-  const uint32_t cam_out = xorshift32(cam_in);
-  if (i == 0) *a.cam_seed_out = (long long)cam_out;
-  if (i >= a.n) return;
+// ------------------------------------------------------ render/bsdf_disney.py
+__device__ __forceinline__ float clamp01(float x) {   // NaN stays NaN
+  return x != x ? x : (x < 0.0f ? 0.0f : (x > 1.0f ? 1.0f : x));
+}
+__device__ __forceinline__ float schlick(float u) {
+  const float m = clamp01(1.0f - u);
+  const float m2 = m * m;
+  return m2 * m2 * m;
+}
+
+// GGX (ggxmdf.h) on tangent-space z-up vectors
+__device__ float ggx_d(float mx, float my, float mz, float ax, float ay) {
+  const float c2 = mz * mz;
+  const float s = sqrt0(1.0f - c2);
+  const float c4 = c2 > 1e-12f ? c2 * c2 : 1.0f;
+  const float tan2 = (1.0f - c2) / cmin(c2, 1e-12f);
+  const bool iso = fabsf(ax - ay) < 1e-7f || s == 0.0f;
+  const float cp = mx / cmin(s * ax, 1e-12f);
+  const float sp = my / cmin(s * ay, 1e-12f);
+  const float aa = iso ? 1.0f / (ax * ax) : cp * cp + sp * sp;
+  const float tmp = 1.0f + tan2 * aa;
+  const float d = 1.0f / (PI_F * ax * ay * c4 * tmp * tmp);
+  return c2 > 1e-12f ? d : ax * ax * INV_PI;
+}
+
+__device__ float ggx_lambda(float vx, float vy, float vz, float ax,
+                            float ay) {
+  if (!(fabsf(vz) > 1e-12f)) return 0.0f;
+  const float c2 = vz * vz;
+  const float s = sqrt0(1.0f - c2);
+  const bool iso = fabsf(ax - ay) < 1e-7f || s == 0.0f;
+  const float cp = vx / cmin(s, 1e-12f);
+  const float sp = vy / cmin(s, 1e-12f);
+  const float alpha = iso ? ax : sqrt0(cp * cp * ax * ax + sp * sp * ay * ay);
+  const float tan2 = (s * s) / cmin(c2, 1e-12f);
+  return 0.5f * (-1.0f + sqrtf(1.0f + alpha * alpha * tan2));
+}
+
+// the GGX visible-normal sample (ggxmdf.h:102-121) about local wo = v
+__device__ V3 ggx_sample(float vx, float vy, float vz, float r0, float r1,
+                         float ax, float ay) {
+  const float sign = vz < 0.0f ? -1.0f : 1.0f;
+  float sx = sign * vx * ax, sy = sign * vy * ay, sz = sign * vz;
+  float inv = rsqrtf(cmin(sx * sx + sy * sy + sz * sz, 1e-20f));
+  sx = sx * inv; sy = sy * inv; sz = sz * inv;
+  const float denom = sqrtf(cmin(sx * sx + sy * sy, 1e-20f));
+  const bool straight = vz >= 0.9999f;
+  const float t1x = straight ? 1.0f : sy / denom;
+  const float t1y = straight ? 0.0f : -sx / denom;
+  const float t1z = 0.0f * t1x;
+  const float t2x = t1y * sz - t1z * sy;
+  const float t2y = t1z * sx - t1x * sz;
+  const float t2z = t1x * sy - t1y * sx;
+  const float a = 1.0f / (1.0f + sz);
+  const float r = sqrtf(cmin(r0, 0.0f));
+  const bool low = r1 < a;
+  const float phi = low ? r1 / cmin(a, 1e-9f) * PI_F
+                        : PI_F + (r1 - a) / cmin(1.0f - a, 1e-9f) * PI_F;
+  const float p1 = r * cosf(phi);
+  const float p2 = r * sinf(phi) * (low ? 1.0f : sz);
+  const float p3 = sqrtf(cmin(1.0f - p1 * p1 - p2 * p2, 0.0f));
+  const float hx = p1 * t1x + p2 * t2x + p3 * sx;
+  const float hy = p1 * t1y + p2 * t2y + p3 * sy;
+  const float hz = p1 * t1z + p2 * t2z + p3 * sz;
+  const float mx = hx * ax, my = hy * ay, mz = cmin(hz, 0.0f);
+  inv = rsqrtf(cmin(mx * mx + my * my + mz * mz, 1e-20f));
+  return mk(mx * inv, my * inv, mz * inv);
+}
+
+// GTR1 with alpha already clamped: a2 = alpha^2, log_a2 = log(a2)
+__device__ __forceinline__ float gtr1_d(float mz, float a2, float log_a2) {
+  const float a = (a2 - 1.0f) / (PI_F * log_a2);
+  const float b = 1.0f / (1.0f + (a2 - 1.0f) * mz * mz);
+  return a * b;
+}
+
+__device__ float gtr1_lambda(float vz, float a2, float log_a2) {
+  const float c2 = vz * vz;
+  const float s = sqrt0(1.0f - c2);
+  if (!(fabsf(vz) > 1e-9f && s > 1e-9f)) return 0.0f;
+  const float cot2 = c2 / cmin(s * s, 1e-12f);
+  const float cot = sqrt0(cot2);
+  const float a = sqrtf(cot2 + a2);
+  const float b = sqrtf(cot2 + 1.0f);
+  const float c = logf(cmin(cot + b, 1e-20f));
+  const float dd = logf(cmin(cot + a, 1e-20f));
+  return (a - b + cot * (c - dd)) / (cot * log_a2);
+}
+
+__device__ V3 gtr1_sample(float r0, float r1, float a2) {
+  const float a = 1.0f - powf(a2, 1.0f - r0);
+  const float c2 = a / (1.0f - a2);
+  const float cz = sqrtf(cmin(c2, 0.0f));
+  const float s = sqrt0(1.0f - c2);
+  const float phi = TWO_PI * r1;
+  return mk(s * cosf(phi), s * sinf(phi), cz);
+}
+
+// what a lane's Disney BSDF computes once, whatever the directions:
+// _lobe_weights, tint_and_luminance's tint, _spec_alphas, the clamped
+// _clearcoat_alpha, and the tint mixes of _spec_fresnel and _evaluate_sheen
+struct DisneyLane {
+  V3 spec0, sheen0;
+  float w_d, w_sh, w_sp, w_c, ax, ay, a2, log_a2, omm;
+};
+
+__device__ DisneyLane disney_lane(const Shading& sd) {
+  DisneyLane L;
+  const V3 c = sd.color;
+  const float y = 0.212671f * c.x + 0.715160f * c.y + 0.072169f * c.z;
+  const float yc = cmin(y, 1e-9f);
+  const V3 tint = y > 0.0f ? mk(c.x / yc, c.y / yc, c.z / yc)
+                           : mk(1.0f, 1.0f, 1.0f);
+  L.omm = 1.0f - sd.metallic;
+  const float w0 = y * L.omm;
+  const float w1 = sd.sheen * L.omm;
+  const float w2 = sd.specular + sd.metallic * (1.0f - sd.specular);
+  const float w3 = sd.clearcoat * 0.25f;
+  const float total = cmin(w0 + w1 + w2 + w3, 1e-9f);
+  L.w_d = w0 / total;
+  L.w_sh = w1 / total;
+  L.w_sp = w2 / total;
+  L.w_c = w3 / total;
+  const float sq = sd.roughness * sd.roughness;
+  const float aspect =
+      sqrtf(1.0f + sd.anisotropic * (sd.anisotropic < 0.0f ? 0.9f : -0.9f));
+  L.ax = cmin(sq / aspect, 0.001f);
+  L.ay = cmin(sq * aspect, 0.001f);
+  float alpha = 0.1f + -0.099f * sd.clearcoat_gloss;
+  alpha = alpha != alpha ? alpha
+          : (alpha < 0.001f ? 0.001f : (alpha > 0.999f ? 0.999f : alpha));
+  L.a2 = alpha * alpha;
+  L.log_a2 = logf(L.a2);
+  const float st = sd.spec_tint, sp8 = sd.specular * 0.08f;
+  const V3 v = mk(((1.0f - st) + st * tint.x) * sp8,
+                  ((1.0f - st) + st * tint.y) * sp8,
+                  ((1.0f - st) + st * tint.z) * sp8);
+  L.spec0 = add(scl(v, L.omm), scl(c, sd.metallic));
+  const float sh = sd.sheen_tint;
+  L.sheen0 = mk((1.0f - sh) + sh * tint.x, (1.0f - sh) + sh * tint.y,
+                (1.0f - sh) + sh * tint.z);
+  return L;
+}
+
+// the four lobes' values and pdfs at (wo, wi) about i_n in the frame
+// (t, b): _evaluate_diffuse, _evaluate_sheen, _evaluate_mf (GGX, GTR1)
+struct Lobes { V3 v[4]; float p[4]; };
+
+__device__ Lobes disney_lobes(const Shading& sd, const DisneyLane& L, V3 i_n,
+                              V3 t, V3 b, V3 wo, V3 wi) {
+  Lobes r;
+  {   // diffuse (disney.h:137-165)
+    const V3 h = normalize(add(wi, wo));
+    const float cos_on = dot(i_n, wo), cos_in = dot(i_n, wi);
+    const float cos_ih = dot(wi, h);
+    const float fl = schlick(cos_in), fv = schlick(cos_on);
+    const float fd90 = 0.5f + 2.0f * cos_ih * cos_ih * sd.roughness;
+    float fd = (1.0f + (fd90 - 1.0f) * fl) * (1.0f + (fd90 - 1.0f) * fv);
+    fd = sd.subsurface != 1.0f ? fd : 0.0f;
+    const float fss90 = cos_ih * cos_ih * sd.roughness;
+    const float fss = (1.0f + (fss90 - 1.0f) * fl)
+                      * (1.0f + (fss90 - 1.0f) * fv);
+    const float ss = 1.25f * (fss * (1.0f / cmin(fabsf(cos_on) + fabsf(cos_in),
+                                                 1e-9f) - 0.5f) + 0.5f);
+    fd = fd + sd.subsurface * (ss - fd);
+    r.v[0] = scl(sd.color, fd * INV_PI * L.omm);
+    r.p[0] = fabsf(cos_in) * INV_PI;
+  }
+  {   // sheen (disney.h:180-190; h from wo + wo, the reference's quirk)
+    const float fh = schlick(dot(wi, normalize(add(wo, wo))));
+    r.v[1] = scl(L.sheen0, fh * sd.sheen * L.omm);
+    r.p[1] = 0.15915494309189535f;   // 1 / (2 pi)
+  }
+  // the microfacet lobes (disney.h:118-135) in the local frame
+  const float wox = dot(wo, t), woy = dot(wo, b), woz = dot(wo, i_n);
+  const float wix = dot(wi, t), wiy = dot(wi, b), wiz = dot(wi, i_n);
+  const float msx = wix + wox, msy = wiy + woy, msz = wiz + woz;
+  const float inv = rsqrtf(cmin(msx * msx + msy * msy + msz * msz, 1e-20f));
+  const float mx = msx * inv, my = msy * inv, mz = msz * inv;
+  const float cos_oh = wox * mx + woy * my + woz * mz;
+  const float den4 = cmin(fabsf(4.0f * cos_oh), 1e-9f);
+  const float denom = cmin(fabsf(4.0f * woz * wiz), 1e-9f);
+  const bool ok = fabsf(woz) > 1e-9f && fabsf(wiz) > 1e-9f
+                  && fabsf(cos_oh) > 1e-9f;
+  const float f = schlick(fabsf(cos_oh));
+  {   // specular: GGX
+    const float d = ggx_d(mx, my, mz, L.ax, L.ay);
+    const float lo = ggx_lambda(wox, woy, woz, L.ax, L.ay);
+    const float g = 1.0f / (1.0f + lo + ggx_lambda(wix, wiy, wiz, L.ax, L.ay));
+    const float g1 = 1.0f / (1.0f + lo);
+    const float vm = fabsf(wox * mx + woy * my + woz * mz);
+    const float pdf = fabsf(woz) > 1e-12f ? g1 * vm * d / fabsf(woz) : 0.0f;
+    const float dg = d * g / denom;
+    r.v[2] = ok ? mk(((1.0f - f) * L.spec0.x + f) * dg,
+                     ((1.0f - f) * L.spec0.y + f) * dg,
+                     ((1.0f - f) * L.spec0.z + f) * dg)
+                : mk(0.f, 0.f, 0.f);
+    r.p[2] = ok ? pdf / den4 : 0.0f;
+  }
+  {   // clearcoat: GTR1
+    const float d = gtr1_d(mz, L.a2, L.log_a2);
+    const float g = 1.0f / (1.0f + gtr1_lambda(woz, L.a2, L.log_a2)
+                            + gtr1_lambda(wiz, L.a2, L.log_a2));
+    const float fc = (0.04f + 0.96f * f) * 0.25f * sd.clearcoat;
+    const float v = fc * (d * g / denom);
+    r.v[3] = ok ? mk(v, v, v) : mk(0.f, 0.f, 0.f);
+    r.p[3] = ok ? d * fabsf(mz) / den4 : 0.0f;
+  }
+  return r;
+}
+
+// sample_mf (disney.h:96-116): reflect wo about the sampled microfacet
+// normal, then force the direction above the geometric surface
+__device__ V3 disney_sample_mf(const DisneyLane& L, V3 i_n, V3 t, V3 b,
+                               V3 n_flip, V3 wo, float r0, float r1,
+                               bool ggx) {
+  const float wox = dot(wo, t), woy = dot(wo, b), woz = dot(wo, i_n);
+  const V3 m = ggx ? ggx_sample(wox, woy, woz, r0, r1, L.ax, L.ay)
+                   : gtr1_sample(r0, r1, L.a2);
+  const float k = 2.0f * (wox * m.x + woy * m.y + woz * m.z);
+  V3 wi = add(add(scl(t, k * m.x - wox), scl(b, k * m.y - woy)),
+              scl(i_n, k * m.z - woz));
+  const float corr = 1e-4f - dot(wi, n_flip);
+  if (corr > 0.0f) wi = normalize(add(wi, scl(n_flip, corr)));
+  return wi;
+}
+
+struct Disney {
+  static constexpr bool kDisney = true;
+  typedef DisneyLane Lane;
+  static __device__ __forceinline__ Lane prepare(const Shading& sd) {
+    return disney_lane(sd);
+  }
+
+  // evaluate (disney.h:298-335) toward the light, on the lanes whose
+  // connection can count (`want`; the others' potential is 0 whatever the
+  // BSDF gives, and the shade stage masks it so)
+  static __device__ __forceinline__ void nee(
+      const Shading& sd, const Lane& L, V3 d, V3 l_dir, bool cur_spec,
+      bool want, V3& e_bsdf, float& e_pdf) {
+    e_bsdf = mk(0.f, 0.f, 0.f);
+    e_pdf = 0.0f;
+    if (!want || cur_spec) return;
+    V3 t, b;
+    oriented_frame(sd.n_shading, sd.tangent, sd.bitangent, t, b);
+    const Lobes r = disney_lobes(sd, L, sd.n_shading, t, b, neg(d), l_dir);
+    const bool u0 = L.w_d > 0.0f, u1 = L.w_sh > 0.0f;
+    const bool u2 = L.w_sp > 0.0f && r.p[2] > 0.0f;
+    const bool u3 = L.w_c > 0.0f && r.p[3] > 0.0f;
+    const V3 z = mk(0.f, 0.f, 0.f);
+    e_bsdf = add(add(add(u0 ? r.v[0] : z, u1 ? r.v[1] : z), u2 ? r.v[2] : z),
+                 u3 ? r.v[3] : z);
+    e_pdf = (u0 ? L.w_d * r.p[0] : 0.0f) + (u1 ? L.w_sh * r.p[1] : 0.0f)
+            + (L.w_sp > 0.0f ? L.w_sp * r.p[2] : 0.0f)
+            + (L.w_c > 0.0f ? L.w_c * r.p[3] : 0.0f);
+  }
+
+  // sample (disney.h:203-297) with wo = -d, on the lanes that may extend
+  // (the others' sample is never read); `lobe` the pick, an index into
+  // utils/telemetry.py LOBES, or -1 where none is counted
+  static __device__ __forceinline__ BsdfSample sample(
+      const Shading& sd, const Lane& L, V3 d, float dist, float r3, float r4,
+      bool may_extend, int& lobe) {
+    BsdfSample s;
+    lobe = -1;
+    if (!may_extend) {
+      s.wi = d;
+      s.bsdf = mk(0.f, 0.f, 0.f);
+      s.pdf = 0.0f;
+      s.specular = false;
+      return s;
+    }
+    const V3 wo = neg(d);
+    const float flip = dot(wo, sd.n_geom) < 0.0f ? -1.0f : 1.0f;
+    const V3 i_n = scl(sd.n_shading, flip);
+    const V3 n_flip = scl(sd.n_geom, flip);
+    s.specular = r4 < sd.transmission;
+    if (s.specular) {
+      // the dielectric (shared with lambert; disney.h:211-234)
+      lobe = 4;
+      const float eio = flip < 0.0f ? 1.0f / cmin(sd.eta, 1e-6f) : sd.eta;
+      const float f = fr_l(dot(i_n, wo), eio);
+      const float two_d = dist * 2.0f;
+      const V3 cb = mul(sd.color, mk(expf(-sd.absorption.x * two_d),
+                                     expf(-sd.absorption.y * two_d),
+                                     expf(-sd.absorption.z * two_d)));
+      if (r3 < f) {
+        s.wi = sub(neg(wo), scl(i_n, 2.0f * dot(neg(wo), i_n)));
+        const float c = cmin(fabsf(dot(i_n, s.wi)), 1e-9f);
+        s.bsdf = mk(cb.x / c, cb.y / c, cb.z / c);
+        s.pdf = dot(n_flip, s.wi) > 0.0f ? 1.0f : 0.0f;
+      } else {
+        // _refract_l(wo, i_n, eio)
+        const float cos_i = fabsf(dot(i_n, wo));
+        const float sin2_t = eio * eio * cmin(1.0f - cos_i * cos_i, 0.0f);
+        const float cos_t = sqrt0(1.0f - sin2_t);
+        s.wi = add(scl(neg(wo), eio), scl(i_n, eio * cos_i - cos_t));
+        const float c = cmin(fabsf(dot(i_n, s.wi)), 1e-9f);
+        s.bsdf = sin2_t < 1.0f ? mk(cb.x / c, cb.y / c, cb.z / c)
+                               : mk(0.f, 0.f, 0.f);
+        s.pdf = 1.0f;
+      }
+      return s;
+    }
+    // the lobe CDF and the picked lobe's renormalised random
+    const float r3n = (r4 - sd.transmission)
+                      / cmin(1.0f - sd.transmission, 1e-9f);
+    const float c0 = L.w_d, c1 = L.w_d + L.w_sh, c2 = L.w_d + L.w_sh + L.w_sp;
+    const bool pick_d = r3n < c0;
+    const bool pick_sh = r3n >= c0 && r3n < c1;
+    const bool pick_sp = r3n >= c1 && r3n < c2;
+    const bool pick_c = r3n >= c2;
+    lobe = (int)!pick_d + (int)(r3n >= c1) + (int)pick_c;
+    const float r2 =
+        pick_d ? r3n / cmin(c0, 1e-9f)
+        : pick_sh ? (r3n - c0) / cmin(c1 - c0, 1e-9f)
+        : pick_sp ? (r3n - c1) / cmin(c2 - c1, 1e-9f)
+                  : (r3n - c2) / cmin(1.0f - c2, 1e-9f);
+    V3 t, b;
+    oriented_frame(i_n, sd.tangent, sd.bitangent, t, b);
+    if (pick_sp || pick_c) {
+      s.wi = disney_sample_mf(L, i_n, t, b, n_flip, wo, r2, r3, pick_sp);
+    } else {
+      // cosine_hemisphere(r2, r3) in the frame
+      const float term1 = TWO_PI * r2;
+      const float term2 = sqrtf(cmin(1.0f - r3, 0.0f));
+      const float sr = sqrtf(cmin(r3, 0.0f));
+      s.wi = normalize(add(add(scl(t, cosf(term1) * sr),
+                               scl(b, sinf(term1) * sr)), scl(i_n, term2)));
+    }
+    // all four lobes at the sampled direction (MIS inside the BSDF)
+    const Lobes r = disney_lobes(sd, L, i_n, t, b, wo, s.wi);
+    const V3 z = mk(0.f, 0.f, 0.f);
+    s.bsdf = add(add(add(L.w_d > 0.0f ? r.v[0] : z, L.w_sh > 0.0f ? r.v[1] : z),
+                     L.w_sp > 0.0f ? r.v[2] : z),
+                 L.w_c > 0.0f ? r.v[3] : z);
+    s.pdf = L.w_d * r.p[0] + L.w_sh * r.p[1] + L.w_sp * r.p[2]
+            + L.w_c * r.p[3];
+    // a sampled direction below the surface is a dead sample
+    if (dot(s.wi, i_n) <= 0.0f && !(pick_sp || pick_c)) s.pdf = 0.0f;
+    return s;
+  }
+};
+
+struct Lambert {
+  static constexpr bool kDisney = false;
+  struct Lane {};
+  static __device__ __forceinline__ Lane prepare(const Shading&) {
+    return Lane();
+  }
+  // evaluate toward the light, scaled by the roughness
+  // (BSDF_HAS_PURE_SPECULARS, lambert.h:19-30)
+  static __device__ __forceinline__ void nee(
+      const Shading& sd, const Lane&, V3, V3 l_dir, bool cur_spec, bool,
+      V3& e_bsdf, float& e_pdf) {
+    e_pdf = cur_spec ? 0.0f : fabsf(dot(l_dir, sd.n_shading)) * INV_PI;
+    e_bsdf = scl(cur_spec ? mk(0.f, 0.f, 0.f) : scl(sd.color, INV_PI),
+                 sd.roughness);
+  }
+  static __device__ __forceinline__ BsdfSample sample(
+      const Shading& sd, const Lane&, V3 d, float dist, float r3, float r4,
+      bool, int& lobe) {
+    lobe = -1;
+    return lambert_sample(sd, d, dist, r3, r4);
+  }
+};
+
+// ------------------------------------------------------------- the kernels
+// The shade stage of lane i (render/wavefront.py _shade_composed) under the
+// BSDF B; `cam_out` is this bounce's camera seed. Returns the lobe the lane
+// picked where it may extend (B = Disney), else -1.
+template <class B>
+__device__ __forceinline__ int shade_lane(const ShadeArgs& a, long long i,
+                                          uint32_t cam_out) {
   const float geo_eps = a.geo_eps;
   const long long li = a.depth ? __ldg(a.depth + i) : (long long)a.li;
   const long long path_length = li + 1;
@@ -743,7 +1199,7 @@ shade_bounce_kernel(const __grid_constant__ ShadeArgs a) {
 
   bool hit = alive && prim >= 0;
   const V3 ip = add(o, scl(d, t));
-  Shading sd = shading_data(a, i, d, t, prim, u, v);
+  Shading sd = shading_data<B::kDisney>(a, i, d, t, prim, u, v);
 
   // alpha cutout -> passthrough
   const bool cutout = hit && sd.cutout;
@@ -802,10 +1258,11 @@ shade_bounce_kernel(const __grid_constant__ ShadeArgs a) {
   const float dist = sqrtf(cmin(dot(l_vec, l_vec), 1e-20f));
   const V3 l_dir = mk(l_vec.x / dist, l_vec.y / dist, l_vec.z / dist);
   const float n_dot_l = dot(l_dir, fn_flip);
-  const float e_pdf = cur_spec ? 0.0f
-                      : fabsf(dot(l_dir, sd.n_shading)) * INV_PI;
-  const V3 e_bsdf = scl(cur_spec ? mk(0.f, 0.f, 0.f)
-                                 : scl(sd.color, INV_PI), sd.roughness);
+  const typename B::Lane lane = B::prepare(sd);
+  V3 e_bsdf;
+  float e_pdf;
+  B::nee(sd, lane, d, l_dir, cur_spec,
+         nee_mask && n_dot_l > 0.0f && ls.light_pdf > 0.0f, e_bsdf, e_pdf);
   const bool conn_ok = nee_mask && n_dot_l > 0.0f && ls.light_pdf > 0.0f
                        && e_pdf > 0.0f;
   const float denom = ls.pick_prob * ls.light_pdf + e_pdf;
@@ -828,7 +1285,8 @@ shade_bounce_kernel(const __grid_constant__ ShadeArgs a) {
   r3 = BN_OR(r3, 6, 256);
   r4 = BN_OR(r4, 7, 256);
 #undef BN_OR
-  const BsdfSample smp = lambert_sample(sd, d, t, r3, r4);
+  int lobe;
+  const BsdfSample smp = B::sample(sd, lane, d, t, r3, r4, may_extend, lobe);
   const bool ok_pdf = smp.pdf >= EPS_PDF && isfinite(smp.pdf);
 
   // russian roulette
@@ -851,12 +1309,48 @@ shade_bounce_kernel(const __grid_constant__ ShadeArgs a) {
   a.prev_spec_out[i] = extend ? smp.specular : prev_spec;
   a.n_diffuse_out[i] = n_diffuse + (extend && !smp.specular ? 1 : 0);
   a.alive_out[i] = extend || pass_ok;
+  return lobe;
+}
+
+__global__ void __launch_bounds__(BLOCK)
+shade_bounce_kernel(const __grid_constant__ ShadeArgs a) {
+  const long long i = (long long)blockIdx.x * BLOCK + threadIdx.x;
+  const uint32_t cam_in = (uint32_t)__ldg(a.cam_seed);
+  const uint32_t cam_out = xorshift32(cam_in);
+  if (i == 0) *a.cam_seed_out = (long long)cam_out;
+  if (i >= a.n) return;
+  shade_lane<Lambert>(a, i, cam_out);
+}
+
+// The Disney kernel adds the block's lobe picks to a.lobes (when given)
+// from shared memory: at most one atomic a lobe a block.
+__global__ void __launch_bounds__(BLOCK)
+shade_disney_kernel(const __grid_constant__ ShadeArgs a) {
+  __shared__ unsigned int picks[N_LOBES];
+  const long long i = (long long)blockIdx.x * BLOCK + threadIdx.x;
+  const uint32_t cam_in = (uint32_t)__ldg(a.cam_seed);
+  const uint32_t cam_out = xorshift32(cam_in);
+  if (i == 0) *a.cam_seed_out = (long long)cam_out;
+  if (a.lobes && threadIdx.x < N_LOBES) picks[threadIdx.x] = 0u;
+  if (a.lobes) __syncthreads();
+  const int lobe = i < a.n ? shade_lane<Disney>(a, i, cam_out) : -1;
+  if (!a.lobes) return;
+  if (lobe >= 0) atomicAdd(&picks[lobe], 1u);
+  __syncthreads();
+  if (threadIdx.x < N_LOBES && picks[threadIdx.x])
+    atomicAdd(a.lobes + threadIdx.x, (unsigned long long)picks[threadIdx.x]);
 }
 
 // ------------------------------------------------------------- the launch
 extern "C" int lh2_shade_bounce(const ShadeArgs* args, void* stream) {
   const int grid = args->n > 0 ? (args->n + BLOCK - 1) / BLOCK : 1;
   shade_bounce_kernel<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(*args);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int lh2_shade_disney(const ShadeArgs* args, void* stream) {
+  const int grid = args->n > 0 ? (args->n + BLOCK - 1) / BLOCK : 1;
+  shade_disney_kernel<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(*args);
   return (int)cudaGetLastError();
 }
 

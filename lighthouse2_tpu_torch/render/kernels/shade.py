@@ -1,27 +1,38 @@
 """The shade stage of a bounce as one kernel: build, bind and call csrc/shade.cu.
 
 It replaces no Pallas kernel: the JAX package leaves shading to XLA's
-fusions, and the port composed the same stage from ~2,700 small ATen kernels
-a bounce (render/wavefront.py shade_bounce), each costing about its launch
-spacing rather than its bytes. The kernel runs the stage for the forward
-Lambert path in one launch a bounce, one lane a thread. It is bound by the
+fusions (its shade_bounce with bsdf_lambert or bsdf_disney), and the port
+composed the same stage from small ATen kernels (render/wavefront.py
+_shade_composed): ~2,700 a bounce for Lambert, ~4,400 for Disney, each
+costing about its launch spacing rather than its bytes. A kernel runs the
+stage for the forward Lambert or Disney path in one launch a bounce, one
+lane a thread; the library holds one kernel a BSDF (shade_bounce_kernel,
+shade_disney_kernel), two instantiations of one templated body, so that
+each has its own register allocation. The Lambert kernel is bound by the
 bytes of the gathered lane state (path state, hit, the hit triangle's and
 material's rows or the cluster payload, texels, lights: ~95-112 MB a bounce
-at 262,144 lanes), and its design keeps every intermediate in registers and
-reads the scene's own tensors in place; the CUDA source says more.
+at 262,144 lanes); the Disney kernel reads nearly the same bytes but does
+two four-lobe BSDF evaluations and a GGX/GTR1 sample a lane on warps split
+by lobe, so its arithmetic and divergence bound it. Both keep every
+intermediate in registers and read the scene's own tensors in place; the
+Disney kernel computes a lane's lobe weights, tints and alphas once and
+builds only the picked lobe's direction; the CUDA source says more.
 
 use_kernel is the rule render/wavefront.py shade_bounce applies before any
-launch: the kernel for CUDA tensors, the Lambert BSDF, no filter, no IBL sky
-NEE, no scene sharding and no gradient needed (grad mode off, or no tensor
-the shading reads requires grad); the composed, differentiable code for
-everything else. shade_kernel launches or raises; for CPU tensors it runs
-that composed code (render/wavefront.py _shade_composed), its plain version.
+launch: a kernel for CUDA tensors, the Lambert or Disney BSDF, no filter,
+no IBL sky NEE, no scene sharding and no gradient needed (grad mode off, or
+no tensor the shading reads requires grad); the composed, differentiable
+code for everything else. shade_kernel launches config.bsdf's kernel or
+raises; for CPU tensors it runs that composed code, their plain version.
 The shading data come from the cluster payload when one is given (the
 geom_reattach=True rows of bvh/clusters.py PAY_*), else from the scene's
-triangle and material tensors. `shade_kernel.launches` counts launches.
-config_takes_kernel is the rule's configuration half, which the launch
-gates of chip_smoke.py read too; agreement is how the kernel is held to
-the composed code on the card (tests, chip_smoke.py).
+triangle and material tensors. `shade_kernel.launches` counts the Lambert
+kernel's launches, `shade_kernel.disney_launches` the Disney kernel's; with
+`marks` a Disney launch adds its lobe picks to utils/telemetry.py's counts,
+reduced a block in shared memory first. config_takes_kernel is the rule's
+configuration half, which the launch gates of chip_smoke.py read too;
+agreement is how a kernel is held to the composed code on the card
+(tests, chip_smoke.py).
 
 The library is built like the trace kernels' (render/kernels/trace.py
 build_library: nvcc, sm_90a, -fmad=false, hashed into
@@ -44,6 +55,7 @@ from lighthouse2_tpu_torch.render.kernels.trace import (
     _PKG, _check_rc, build_library)
 from lighthouse2_tpu_torch.scene.host_material import MAT_HASALPHA
 from lighthouse2_tpu_torch.scene.host_texture import MIP_LEVELS
+from lighthouse2_tpu_torch.utils import telemetry
 
 SOURCE = os.path.join(_PKG, "csrc", "shade.cu")
 
@@ -59,7 +71,9 @@ _POINTERS = (
     "sp_energy dl_dir dl_rad dl_energy sky bn_mask "
     "o_out d_out tp_out pdf_out last_n_out prev_spec_out n_diffuse_out "
     "alive_out acc_out cam_seed_out sh_o sh_d sh_tmax sh_pot sh_conn "
-    "sh_direct").split()
+    "sh_direct m_metallic m_subsurface m_specular m_spec_tint m_anisotropic "
+    "m_sheen m_sheen_tint m_clearcoat m_clearcoat_gloss m_tex_sheen "
+    "m_tex_clearcoat m_tex_specular m_tex_anisotropic lobes").split()
 _INTS = (
     "n li lt lp ls ld pool_n desc_mips mip_levels base_maps param_maps "
     "sky_h sky_w width max_path max_diffuse russian_roulette "
@@ -80,8 +94,9 @@ def _load():
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(build_library(SOURCE)[0])
-        lib.lh2_shade_bounce.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-        lib.lh2_shade_bounce.restype = ctypes.c_int
+        for fn in (lib.lh2_shade_bounce, lib.lh2_shade_disney):
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
         lib.lh2_shade_layout.restype = ctypes.c_char_p
         want = [CL.PAY_V0, CL.PAY_N0, CL.PAY_UV0, CL.PAY_ALPHA, CL.PAY_MAT,
                 CL.PAY_LTRI, CL.PAY_LOD, CL.PAY_TAN, CL.PAY_BIT,
@@ -109,10 +124,10 @@ def _tensors(*objs):
 
 
 def config_takes_kernel(config, scene) -> bool:
-    """The configuration's half of use_kernel: config.bsdf "lambert", no
-    filter, no IBL sky NEE (config.sky_ibl with the scene's IBL tables),
-    not scene-sharded."""
-    return (config.bsdf == "lambert" and not config.filter_enabled
+    """The configuration's half of use_kernel: config.bsdf "lambert" or
+    "disney" (each its own kernel), no filter, no IBL sky NEE
+    (config.sky_ibl with the scene's IBL tables), not scene-sharded."""
+    return (config.bsdf in ("lambert", "disney") and not config.filter_enabled
             and not config.scene_sharded
             and not (config.sky_ibl and scene.sky.has_ibl))
 
@@ -140,37 +155,48 @@ def _ptr(x, dtype, name):
 
 
 def shade_kernel(scene, view, config, paths, acc, cam_seed, li, t, prim, u,
-                 v, payload=None):
+                 v, payload=None, marks=False):
     """shade_bounce's result (paths', acc', cam_seed', shadow) through one
-    launch of csrc/shade.cu for CUDA tensors; the composed code for CPU
-    tensors. `li` is the path depth, an int or an int64 [N] tensor;
-    `cam_seed` an int or an int64 0-d tensor, returned as the same kind;
-    `payload` the cluster path's [PAY_ROWS, N] rows or None (gathers)."""
+    launch of csrc/shade.cu for CUDA tensors, the kernel of config.bsdf;
+    the composed code for CPU tensors. `li` is the path depth, an int or an
+    int64 [N] tensor; `cam_seed` an int or an int64 0-d tensor, returned as
+    the same kind; `payload` the cluster path's [PAY_ROWS, N] rows or None
+    (gathers). With `marks` (the bounce loop's first run of the bounce) a
+    Disney launch adds its lobe picks to the device's counts
+    (utils/telemetry.py lobe_picks), as the composed code does."""
     dev = paths["origin"].device
     if dev.type == "cpu":
         from lighthouse2_tpu_torch.render.wavefront import _shade_composed
         return _shade_composed(scene, view, config, paths, acc, cam_seed, li,
-                               t, prim, u, v, payload=payload)
+                               t, prim, u, v, payload=payload, marks=marks)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
+    disney = config.bsdf == "disney"
+    lobes = telemetry.lobe_counts(dev) if disney and marks else None
     args, out, keep = _args(scene, view, config, paths, acc, cam_seed, li, t,
-                            prim, u, v, payload)
-    rc = _load().lh2_shade_bounce(
-        ctypes.byref(args), torch.cuda.current_stream(dev).cuda_stream)
+                            prim, u, v, payload, lobes)
+    lib = _load()
+    launch = lib.lh2_shade_disney if disney else lib.lh2_shade_bounce
+    rc = launch(ctypes.byref(args), torch.cuda.current_stream(dev).cuda_stream)
     _check_rc(rc, "shade_kernel")
-    shade_kernel.launches += 1
+    if disney:
+        shade_kernel.disney_launches += 1
+    else:
+        shade_kernel.launches += 1
     return _result(paths, out, cam_seed)
 
 
 def _args(scene, view, config, paths, acc, cam_seed, li, t, prim, u, v,
-          payload):
+          payload, lobes=None):
     """The launch's ShadeArgs, its outputs (allocated here) and the input
     tensors whose pointers it holds (kept alive by the caller until the
-    launch is queued); checks dtypes, devices and shapes."""
+    launch is queued); checks dtypes, devices and shapes. `lobes`: the
+    device's int64 [5] lobe counts, or None."""
     dev = paths["origin"].device
     if not config_takes_kernel(config, scene):
-        raise ValueError("the shade kernel shades the forward Lambert path "
-                         "only (no filter, IBL sky NEE or scene sharding)")
+        raise ValueError("the shade kernels shade the forward Lambert and "
+                         "Disney paths only (no filter, IBL sky NEE or "
+                         "scene sharding)")
     n = paths["origin"].shape[0]
     f32, i32, i64, b8 = torch.float32, torch.int32, torch.int64, torch.bool
     keep = []      # every tensor whose pointer the launch takes
@@ -219,11 +245,19 @@ def _args(scene, view, config, paths, acc, cam_seed, li, t, prim, u, v,
                  ("m_rough", "roughness"), ("m_transmission", "transmission"),
                  ("m_eta", "eta")):
         a[k] = p(getattr(m, f).detach(), f32, f"materials.{f}")
+    for f in ("metallic", "subsurface", "specular", "spec_tint",
+              "anisotropic", "sheen", "sheen_tint", "clearcoat",
+              "clearcoat_gloss"):      # the Disney kernel's only
+        a["m_" + f] = p(getattr(m, f).detach(), f32, f"materials.{f}")
     for k, f in (("m_flags", "flags"), ("m_tex_diffuse", "tex_diffuse"),
                  ("m_tex_normal", "tex_normal"),
                  ("m_tex_rough", "tex_roughness"),
                  ("m_tex_mr", "tex_metal_rough"),
-                 ("m_tex_absorption", "tex_absorption")):
+                 ("m_tex_absorption", "tex_absorption"),
+                 ("m_tex_sheen", "tex_sheen"),
+                 ("m_tex_clearcoat", "tex_clearcoat"),
+                 ("m_tex_specular", "tex_specular"),
+                 ("m_tex_anisotropic", "tex_anisotropic")):
         a[k] = p(getattr(m, f), i32, f"materials.{f}")
     tex = scene.textures
     a["pool"] = p(tex.pool.detach(), f32, "textures.pool")
@@ -244,6 +278,8 @@ def _args(scene, view, config, paths, acc, cam_seed, li, t, prim, u, v,
     a["sky"] = p(sky, f32, "sky.pixels")
     if config.blue_noise:
         a["bn_mask"] = p(bn.device_mask(dev), f32, "blue-noise mask")
+    if lobes is not None:
+        a["lobes"] = p(lobes, i64, "lobes")
 
     out = dict(o=torch.empty((n, 3), dtype=f32, device=dev),
                d=torch.empty((n, 3), dtype=f32, device=dev),
@@ -300,7 +336,8 @@ def _result(paths, out, cam_seed):
     return paths, out["acc"], new_seed, shadow
 
 
-shade_kernel.launches = 0
+shade_kernel.launches = 0           # the Lambert kernel's
+shade_kernel.disney_launches = 0    # the Disney kernel's
 
 
 # the kernel against its plain version on one bounce (agreement): the

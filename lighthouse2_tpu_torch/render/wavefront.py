@@ -32,12 +32,12 @@ Both trace launches stay outside the recomputed region and the backward
 launches no kernel: their outputs ((t, prim, u, v) and occ, each [N]) are
 small and saved.
 
-The shade stage (shade_bounce) is one launch of the shade kernel
-(render/kernels/shade.py, csrc/shade.cu) for a forward Lambert bounce on a
-card, by the kernel's rule (use_kernel), in every executor; everything
-else, the CPU, gradients, Disney, the filter, IBL sky NEE and scene
+The shade stage (shade_bounce) is one launch of a shade kernel
+(render/kernels/shade.py, csrc/shade.cu) for a forward Lambert or Disney
+bounce on a card, by the kernels' rule (use_kernel), in every executor;
+everything else, the CPU, gradients, the filter, IBL sky NEE and scene
 sharding, runs the composed code (_shade_composed), which is also the
-kernel's plain version.
+kernels' plain version.
 
 Stage marks (utils/telemetry.py): the bounce loop that trace_paths,
 trace_paths_unrolled and trace_paths_regen share opens each stage of a
@@ -513,15 +513,16 @@ def shade_bounce(scene, view, config: RenderConfig, paths, acc, cam_seed, li,
     triangles' rows (the cluster path, scene sharding). Returns (paths',
     acc', cam_seed', shadow).
 
-    One launch of the shade kernel (render/kernels/shade.py) where its rule
-    (use_kernel) holds: CUDA tensors, the forward Lambert path; else the
-    composed, differentiable code (_shade_composed), which with `marks`
-    opens the stage's parts with their marks and counts the Disney lobe
-    picks."""
+    One launch of the shade kernel of config.bsdf (render/kernels/shade.py)
+    where its rule (use_kernel) holds: CUDA tensors, the forward Lambert or
+    Disney path; else the composed, differentiable code (_shade_composed),
+    which with `marks` opens the stage's parts with their marks. With
+    `marks` both count the Disney lobe picks."""
     if shade_k.use_kernel(scene, view, config, paths, acc, (t, prim, u, v),
                           payload):
         return shade_k.shade_kernel(scene, view, config, paths, acc, cam_seed,
-                                    li, t, prim, u, v, payload=payload)
+                                    li, t, prim, u, v, payload=payload,
+                                    marks=marks)
     return _shade_composed(scene, view, config, paths, acc, cam_seed, li,
                            t, prim, u, v, payload=payload, marks=marks)
 
@@ -529,7 +530,7 @@ def shade_bounce(scene, view, config: RenderConfig, paths, acc, cam_seed, li,
 def _shade_composed(scene, view, config: RenderConfig, paths, acc, cam_seed,
                     li, t, prim, u, v, payload=None, marks=False):
     """shade_bounce composed of tensor operations: every configuration,
-    differentiable; the shade kernel's plain version. With `marks` (the
+    differentiable; the shade kernels' plain version. With `marks` (the
     bounce loop's first run of the bounce) the NEE and the BSDF sample open
     with the marks of telemetry.SHADE_PARTS, and a Disney bounce adds its
     lobe picks to telemetry.count_lobes."""

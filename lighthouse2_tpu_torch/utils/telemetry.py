@@ -25,7 +25,7 @@ previous mark to the stage that mark opened, in an int64 buffer that each
 device allocates once, outside any capture (a graph bakes in its
 address), and never frees. The passes place the marks as STAGES says; the
 composed shade code (render/wavefront.py _shade_composed) also opens the
-two parts of its stage that SHADE_PARTS names, which the shade kernel's
+two parts of its stage that SHADE_PARTS names, which a shade kernel's
 single launch does not; "end" closes a pass, and the time from there to
 the next pass's first mark (the replay's copies) goes to no stage. The
 launch is render/kernels/trace.py's launch_mark, which that module
@@ -36,8 +36,9 @@ pass.
 
 Device counters. count_lobes adds a Disney bounce's lobe picks (LOBES) to
 a second int64 buffer of the device with four small ops (the composed
-shade code calls it on the marked bounces of the Disney BSDF only);
-lobe_picks(device) reads it on demand, the cores turn two readouts into a
+shade code calls it on the marked bounces of the Disney BSDF only); the
+Disney shade kernel adds its picks to the same buffer (lobe_counts) on
+those bounces; lobe_picks(device) reads it on demand, the cores turn two readouts into a
 pass's picks ("lobe_picks"), and the render CLI prints their shares on its
 pass line.
 """
@@ -59,8 +60,8 @@ STAGES = ("generate", "trace", "refine", "shade", "occlude", "apply",
 # numbered after STAGES: nee (the light sample, the BSDF evaluation toward
 # it, the shadow ray's set-up) and sample (the BSDF sample, roulette, the
 # next ray); there "shade" keeps the shading data, the sky and the
-# implicit-light MIS and the bounce's prep. The shade kernel marks neither,
-# so a pass that takes it holds no such stage
+# implicit-light MIS and the bounce's prep. The shade kernels mark neither,
+# so a pass that takes one holds no such stage
 SHADE_PARTS = ("nee", "sample")
 # every stage a mark opens, in the order csrc/trace.cu numbers them
 # (lh2_mark_stages, which the library's loader holds to this)
@@ -202,6 +203,12 @@ def count_lobes(lobe, mask):
     buf, lobes = _lobe_buffer(lobe.device)
     picked = torch.where(mask, lobe, -1)[None] == lobes
     buf += picked.sum(1)
+
+
+def lobe_counts(device):
+    """The device's int64 [LOBES] lobe counts, for a kernel to add its
+    picks to (render/kernels/shade.py); allocated as count_lobes's."""
+    return _lobe_buffer(device)[0]
 
 
 def lobe_picks(device) -> dict:

@@ -4,9 +4,10 @@ that picks it.
 On the CPU (a few seconds, a Cornell box at 8x8): which path
 render/wavefront.py shade_bounce takes by render/kernels/shade.py use_kernel:
 the composed code on the CPU, under grad with a material parameter requiring
-grad, and for Disney, the filter, IBL sky NEE and scene sharding; the kernel
-for a forward Lambert bounce on a CUDA device (a stand-in tensor on "cuda"
-for the lanes' device, as this host has no card). And the wrapper's own
+grad (a Lambert and a Disney one), and for the filter, IBL sky NEE (Disney
+under it too) and scene sharding; a kernel for a forward Lambert or Disney
+bounce on a CUDA device (a stand-in tensor on "cuda" for the lanes' device,
+as this host has no card). And the wrapper's own
 checks on the CPU: its plain branch is the composed code, and it refuses a
 lane tensor of the wrong dtype; and the agreement rule that holds the
 kernel to the composed code on the card counts the lanes off by output.
@@ -76,6 +77,17 @@ def test_rule_picks_the_kernel_for_a_forward_lambert_bounce_on_a_card(
                  paths, acc, hit)
 
 
+def test_rule_picks_the_kernel_for_a_forward_disney_bounce_on_a_card(
+        cornell):
+    scene, view, cfg, paths, acc, hit = cornell
+    disney = dataclasses.replace(cfg, bsdf="disney")
+    assert shade_k.config_takes_kernel(disney, scene)
+    assert _rule(scene, view, disney, paths, acc, hit)
+    with torch.no_grad():
+        assert _rule(scene, view, disney, paths, acc, hit)
+    assert not _rule(scene, view, disney, paths, acc, hit, on_card=False)
+
+
 def test_rule_keeps_the_composed_code_on_the_cpu(cornell):
     scene, view, cfg, paths, acc, hit = cornell
     assert not _rule(scene, view, cfg, paths, acc, hit, on_card=False)
@@ -105,10 +117,20 @@ def test_rule_keeps_the_composed_code_under_grad(cornell):
     # a lane tensor that carries a gradient (the refined hit's t)
     t = hit[0].detach().clone().requires_grad_()
     assert not _rule(scene, view, cfg, paths, acc, (t, *hit[1:]))
+    # Disney under a parameter only its BSDF reads
+    disney = dataclasses.replace(cfg, bsdf="disney")
+    metallic = scene.materials.metallic.detach().clone().requires_grad_()
+    graded = dataclasses.replace(
+        scene, materials=dataclasses.replace(scene.materials,
+                                             metallic=metallic))
+    assert _rule(scene, view, disney, paths, acc, hit)
+    assert not _rule(graded, view, disney, paths, acc, hit)
+    with torch.no_grad():
+        assert _rule(graded, view, disney, paths, acc, hit)
 
 
 @pytest.mark.parametrize("change", [
-    dict(bsdf="disney"), dict(filter_enabled=True),
+    dict(bsdf="disney", sky_ibl=True), dict(filter_enabled=True),
     dict(sky_ibl=True), dict(scene_sharded=True)])
 def test_rule_keeps_the_composed_code_for_other_configurations(cornell,
                                                                change):
