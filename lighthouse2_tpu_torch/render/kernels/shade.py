@@ -30,9 +30,9 @@ triangle and material tensors. `shade_kernel.launches` counts the Lambert
 kernel's launches, `shade_kernel.disney_launches` the Disney kernel's; with
 `marks` a Disney launch adds its lobe picks to utils/telemetry.py's counts,
 reduced a block in shared memory first. config_takes_kernel is the rule's
-configuration half, which the launch gates of chip_smoke.py read too;
+configuration half, which the card tests' launch gates read too;
 agreement is how a kernel is held to the composed code on the card
-(tests, chip_smoke.py).
+(tests/test_torch_shade_card.py).
 
 The library is built like the trace kernels' (render/kernels/trace.py
 build_library: nvcc, sm_90a, -fmad=false, hashed into

@@ -53,15 +53,12 @@ def _nvcc() -> str:
     return path
 
 
-def build_library(source: str = SOURCE,
-                  deps: tuple = ()) -> tuple[str, str]:
-    """Compile `source` (csrc/trace.cu by default) unless this source, the
-    files it includes (`deps`) and these flags were built already. Returns
-    (path of the .so, the compiler's log incl. -Xptxas -v)."""
-    src = b""
-    for path in (source, *deps):
-        with open(path, "rb") as fh:
-            src += fh.read()
+def build_library(source: str = SOURCE) -> tuple[str, str]:
+    """Compile `source` (csrc/trace.cu by default) unless this source and
+    these flags were built already. Returns (path of the .so, the
+    compiler's log incl. -Xptxas -v)."""
+    with open(source, "rb") as fh:
+        src = fh.read()
     key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     stem = os.path.splitext(os.path.basename(source))[0]
     so = os.path.join(BUILD_DIR, f"{stem}_{key}.so")

@@ -9,8 +9,9 @@ The asset holds what the glTF loader and the scene's animation path read:
     (a displacement along the normal) and a LINEAR weights channel;
   - a rigid box of 12 triangles with a PNG base-colour texture (a checker)
     and a LINEAR translation channel.
-The animation lasts 2 s. The default sizes are chip_smoke.py's [anim] scene
-(65,536 + 16,384 + 12 triangles); tests pass small ones.
+The animation lasts 2 s. The default sizes are those of the card test
+(tests/test_torch_apps_card.py: 65,536 + 16,384 + 12 triangles); the CPU
+tests pass small ones.
 
     path = write_anim_gltf(directory)                 # .gltf + .bin + .png
     path = write_anim_gltf(directory, glb=True)       # one .glb, image inside

@@ -127,8 +127,8 @@ def test_obj_and_mtl_equal_jax(tmp_path):
 
 
 def test_gltf_and_glb_equal_jax(tmp_path):
-    """A skinned tube, a morphing sphere and a textured box (the [anim]
-    asset of chip_smoke.py at a small size) as .gltf with an external
+    """A skinned tube, a morphing sphere and a textured box (the
+    asset of test_torch_apps_card.py at a small size) as .gltf with an external
     buffer and PNG, and as .glb with the PNG inside; loaded under a
     transform, and a second time without one into the same scene."""
     xf = np.diag([2.0, 2.0, 2.0, 1.0]).astype(np.float32)

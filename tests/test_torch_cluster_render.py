@@ -1,8 +1,8 @@
 """intersector="cluster" through the port's entry points, on the CPU.
 
 On the CPU the cluster kernels' wrappers run their plain versions
-(render/kernels/cluster.py); chip_smoke.py's [cluster] phase runs the same
-entry points on the card.
+(render/kernels/cluster.py); the card tests (test_torch_*_card.py) run
+the same entry points on the card.
   - a Cornell 16x16 cluster render of the classic executor (path 2, two
     passes) against the JAX package's cluster render with its Pallas
     kernels in interpret mode, the scene and its ClusterBVH carried across:

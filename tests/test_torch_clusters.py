@@ -2,8 +2,8 @@
 
 lighthouse2_tpu_torch/bvh/clusters.py, render/kernels/cluster.py and
 render/fetch.py on the CPU, where the kernel wrappers run their plain
-versions (chip_smoke.py's [cluster] phase holds the CUDA kernels against
-those on the card):
+versions (test_torch_trace_card.py holds the CUDA kernels against those
+on the card):
   - cut_clusters and build_cluster_bvh array for array against JAX's, at
     tiles_per_cluster 1 and forced to 2 (min_tpc=2), and the DeviceScene.cbvh
     of a sync asked for it against the JAX default sync's (both cut the

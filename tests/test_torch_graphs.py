@@ -15,7 +15,7 @@ wrappers run outside the recording, each recorded as one entry: on a card
 their CUDA branch is a single launch, their CPU branch a plain walk.
 
 Cases: the regen pass on "auto" with Lambert, and with Disney and sky IBL
-through RenderAPI (the chip_smoke [disney] path); the unrolled pass; the
+through RenderAPI (the card's path in test_torch_cores_card.py); the unrolled pass; the
 regen pass on the cluster intersector; the fwd+bwd step with remat. No JAX.
 """
 import pytest

@@ -11,14 +11,8 @@ as this host has no card). And the wrapper's own
 checks on the CPU: its plain branch is the composed code, and it refuses a
 lane tensor of the wrong dtype; and the agreement rule that holds the
 kernel to the composed code on the card counts the lanes off by output.
-
-Marked `card` (they skip without one; run them on the card with
-`python -m pytest tests/test_torch_shade_kernel.py --noconftest -m card`):
-the kernel against the composed shade_bounce on one bounce of the bathroom
-at 512x512 on both intersectors (gathers and payload), at bounce 0 of a
-fresh regen pool and at a bounce of a pool one pass in, where the lanes
-stand at many path depths; and a regen pass replayed from its CUDA graph
-against the eager composed pass under the benchmark's tolerances. No JAX.
+The kernel itself is held to the composed code on the card by
+test_torch_shade_card.py. No JAX.
 """
 import dataclasses
 
@@ -28,11 +22,9 @@ import torch
 from lighthouse2_tpu_torch.core.types import RenderConfig
 from lighthouse2_tpu_torch.render import wavefront as wf
 from lighthouse2_tpu_torch.render.kernels import shade as shade_k
-from lighthouse2_tpu_torch.scene import bench_scene, presets
+from lighthouse2_tpu_torch.scene import presets
 
 SIZE = 8
-# the benchmark's per-lane tolerances (benchmark/drivers/progressive.py)
-RTOL, ATOL = 1e-3, 1e-4
 
 
 class _OnCard:
@@ -171,94 +163,3 @@ def test_agreement_counts_the_lanes_off_by_output(cornell):
     assert sum(v > 0 for v in off.values()) == 1 + bool(tp[lane - 1].any())
     with pytest.raises(AssertionError, match="cam_seed"):
         shade_k.agreement(want, (p, a, seed + 1, shadow))
-
-
-# ------------------------------------------------------------ on the card
-@pytest.fixture(scope="module")
-def card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA card")
-    return torch.device("cuda", 0)
-
-
-@pytest.fixture(scope="module")
-def bathroom(card):
-    host, cam = bench_scene.bathroom(512, 512, detail=1)
-    scenes = dict(auto=host.sync(card), cluster=host.sync(card, clusters=True))
-    return scenes, cam.get_view(card)
-
-
-def _config(intersector):
-    return RenderConfig(width=512, height=512, max_path_length=16,
-                        path_regen=True, intersector=intersector)
-
-
-def _bounce_inputs(scene, view, cfg, state):
-    """The shade stage's inputs at the next bounce of `state`'s pool: dead
-    lanes regenerated (as trace_paths_regen does), traced and refined."""
-    paths, depth, _ = wf.regenerate(view, cfg, *state.pool)
-    pay_tiles = wf.prepare_cluster_pay(scene, cfg)
-    *hit, payload = wf._intersect(scene, paths["origin"], paths["dir"],
-                                  paths["alive"], cfg, pay_tiles)
-    acc = torch.zeros((cfg.n_paths, 4), device=depth.device)
-    return paths, acc, depth, hit, payload
-
-
-@pytest.mark.card
-@pytest.mark.parametrize("intersector", ["auto", "cluster"])
-def test_kernel_matches_composed_on_a_bounce(bathroom, card, intersector):
-    scenes, view = bathroom
-    scene, cfg = scenes[intersector], _config(intersector)
-    state = wf.ensure_regen_state(view, wf.AccumState.make(cfg, card), cfg)
-    mid = wf.trace_paths_regen(scene, view, cfg, state)[3]
-    report = {}
-    for name, pool in (("bounce 0", state.pool), ("one pass in", mid)):
-        st = dataclasses.replace(state, pool=pool)
-        paths, acc, depth, hit, payload = _bounce_inputs(scene, view, cfg, st)
-        with torch.no_grad():
-            assert shade_k.use_kernel(scene, view, cfg, paths, acc, hit,
-                                      payload)
-            args = (scene, view, cfg, paths, acc, state.cam_seed, depth,
-                    *hit)
-            want = wf._shade_composed(*args, payload=payload)
-            before = shade_k.shade_kernel.launches
-            got = wf.shade_bounce(*args, payload=payload)
-            torch.cuda.synchronize(card)
-        assert shade_k.shade_kernel.launches == before + 1
-        off, agree = shade_k.agreement(want, got)
-        report[name] = dict(agree=agree, depths=int(depth.max()), **off)
-        print(f"[shade kernel] {intersector} {name}: {report[name]}")
-        for k, share in off.items():
-            assert share <= shade_k.OFF_MAX, (name, k, share)
-        assert agree >= shade_k.AGREE_MIN, (name, agree)
-
-
-@pytest.mark.card
-@pytest.mark.parametrize("intersector", ["auto", "cluster"])
-def test_graph_replay_matches_eager_composed_pass(bathroom, card,
-                                                  intersector, monkeypatch):
-    scenes, view = bathroom
-    scene, cfg = scenes[intersector], _config(intersector)
-    state = wf.ensure_regen_state(view, wf.AccumState.make(cfg, card), cfg)
-    wf._regen_graph.clear()
-    with torch.no_grad():
-        calls = [wf._render_pass_regen_jit(scene, view, state, cfg)
-                 for _ in range(3)]     # eager, capture, replay
-        assert wf._regen_graph.replays >= 1
-        monkeypatch.setattr(shade_k, "use_kernel", lambda *a, **k: False)
-        want, _ = wf._regen_pass(scene, view, state, cfg)
-    wf._regen_graph.clear()
-    got, _ = calls[-1]
-    torch.cuda.synchronize(card)
-    close = (torch.abs(got.accumulator - want.accumulator)
-             <= ATOL + RTOL * torch.abs(want.accumulator)).all(1)
-    pool_same = ((got.pool[2] == want.pool[2])
-                 & (got.pool[0]["alive"] == want.pool[0]["alive"]))
-    off = (~close).float().mean().item()
-    print(f"[shade kernel] {intersector} replay vs eager composed: pixels "
-          f"off {off:.5f}, pool lanes off "
-          f"{(~pool_same).float().mean().item():.5f}")
-    assert int(got.cam_seed) == int(want.cam_seed)
-    assert torch.equal(got.sample_count, want.sample_count)
-    assert off <= 0.015
-    assert (~pool_same).float().mean().item() <= 0.015

@@ -9,8 +9,10 @@ signature, and the port's independence from JAX.
   - each such function's leading positional parameters are JAX's, with
     the same names in the same order; the port's extra parameters come
     after them, with a default or keyword-only;
-  - no .py file of the port, and not chip_smoke.py, imports jax, flax,
-    optax or lighthouse2_tpu (an ast scan, so nothing is imported);
+  - no .py file of the port, no card test (tests/test_torch_*_card.py),
+    not their helper module tests/card_support.py and not chip_smoke.py
+    imports jax, flax, optax or lighthouse2_tpu (an ast scan, so nothing is
+    imported): these run on the card's machine, which has no JAX;
   - the key under which render/graphs.py caches a captured pass (the
     counterpart of jax.jit's cache): equal for calls whose tensors have
     the same shapes, whatever their values; another for another shape,
@@ -123,7 +125,10 @@ BANNED = ("jax", "jaxlib", "flax", "optax", "lighthouse2_tpu")
 
 
 def test_port_imports_nothing_of_jax():
-    files = sorted(PORT_PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    cards = sorted((ROOT / "tests").glob("test_torch_*_card.py"))
+    assert len(cards) >= 7
+    files = (sorted(PORT_PKG.rglob("*.py")) + cards
+             + [ROOT / "tests" / "card_support.py", ROOT / "chip_smoke.py"])
     assert len(files) > 60
     bad = []
     for path in files:

@@ -2,8 +2,8 @@
 
 lighthouse2_tpu_torch/render/kernels/trace.py launches csrc/trace.cu for CUDA
 tensors and runs the plain PyTorch version (the BVH4 walk of bvh/wide.py)
-for CPU tensors, which is what runs here; chip_smoke.py holds the CUDA
-kernels against the plain version on the card. Here the wrappers (and the
+for CPU tensors, which is what runs here; test_torch_trace_card.py holds
+the CUDA kernels against the plain version on the card. Here the wrappers (and the
 port's BVH2 walk, bvh/traverse.py, where the JAX lockstep's per-ray visits
 are compared) are held against
   - the JAX Pallas kernels in interpret mode (trace_cluster_bvh), as

@@ -1,8 +1,8 @@
 """The BVH4 of bvh/wide.py: its collapse, its packing and its plain walk.
 
 Both CUDA trace kernels walk this BVH4, and the plain walk (wide_intersect,
-wide_occluded) is the version chip_smoke.py holds them against lane for
-lane on the card. Here, on the CPU, the plain walk is held against
+wide_occluded) is the version test_torch_trace_card.py holds them against
+lane for lane on the card. Here, on the CPU, the plain walk is held against
   - the BVH2 it was collapsed from: every child box is the BVH2 node's box
     bit for bit and every triangle lies in exactly one leaf;
   - the port's BVH2 walk (bvh/traverse.py): t equal on every lane, prim
